@@ -1,0 +1,65 @@
+"""Shared building blocks (port of `mod_extraction_tpu/models/common.py`),
+in NCHW layout."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU on (B, C, ...) input.  The float32 alpha promotes
+    the negative branch, so a bf16 input yields a float32 output (the JAX
+    trunk's `act_io_dtype="float32"` behaviour)."""
+
+    def __init__(self, num_parameters: int, init: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((num_parameters,), init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x >= 0, x, a * x)
+
+
+def layer_norm_no_affine(
+    x: torch.Tensor, dims: Sequence[int], eps: float = 1e-5
+) -> torch.Tensor:
+    """Affine-free LayerNorm over `dims`, statistics and result in float32
+    (biased variance, as torch and jnp.var)."""
+    x = x.to(torch.float32)
+    mean = x.mean(dim=tuple(dims), keepdim=True)
+    var = x.var(dim=tuple(dims), keepdim=True, unbiased=False)
+    return (x - mean) / torch.sqrt(var + eps)
+
+
+class _MaxPoolEqMask(torch.autograd.Function):
+    """Floor-mode max pool whose backward sends the cotangent to EVERY
+    window element equal to the max (the JAX package's eq-mask VJP;
+    `torch.max_pool2d` would pick one of a tie, and ties are common in
+    bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, h: int, w: int):
+        b, c, hh, ww = x.shape
+        y = x.reshape(b, c, hh // h, h, ww // w, w).amax(dim=(3, 5))
+        ctx.save_for_backward(x, y)
+        ctx.window = (h, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        h, w = ctx.window
+        up = y.repeat_interleave(h, dim=2).repeat_interleave(w, dim=3)
+        gu = g.repeat_interleave(h, dim=2).repeat_interleave(w, dim=3)
+        return torch.where(x == up, gu, torch.zeros_like(gu)).to(x.dtype), None, None
+
+
+def max_pool_floor(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:
+    """`nn.MaxPool2d(window)` (stride=window, floor mode) on (B, C, H, W),
+    with the eq-mask backward."""
+    h, w = window
+    hh2, ww2 = (x.shape[2] // h) * h, (x.shape[3] // w) * w
+    return _MaxPoolEqMask.apply(x[:, :, :hh2, :ww2], h, w)

@@ -1,0 +1,237 @@
+"""K1 (flanger/chorus delay line) and K2 (phaser allpass cascade): wrappers
+around the hand-written CUDA kernels in `csrc/fx.cu`, their plain PyTorch
+versions, and launch counters.
+
+Replaces `mod_extraction_tpu/ops/pallas_fx.py` (`flanger_pallas` with
+`_flanger_kernel`, `phaser_pallas` with `_phaser_kernel`).  Both kernels are
+strict per-sample recurrences with few independent lanes, so they are
+latency-bound on the H100; `csrc/fx.cu` says what its design does about it.
+
+Dispatch is by the device of the input: a CPU tensor takes the plain
+version (the tests), a CUDA tensor launches the kernel or raises.  There is
+no fallback between the two.  The library is compiled with `nvcc` at first
+use into `_build/` (git-ignored) and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fx.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: Kernel launches per wrapper since the last `reset_launch_counts()`.
+LAUNCHES = {"flanger": 0, "phaser": 0}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile `csrc/fx.cu` for sm_90a (cached by source hash); returns the
+    library path.  With `verbose`, prints nvcc's ptxas report."""
+    src = _SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"libfx_{digest}.so"
+    if lib_path.exists():
+        return lib_path
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+        if verbose:
+            print(proc.stderr, end="")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib_path
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flanger_forward.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.flanger_forward.restype = i
+        lib.phaser_forward.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.phaser_forward.restype = i
+        lib.flanger_smem_bytes.argtypes = [i]
+        lib.flanger_smem_bytes.restype = i
+        lib.phaser_max_stages.argtypes = []
+        lib.phaser_max_stages.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _lanes(a: torch.Tensor, shape) -> torch.Tensor:
+    """Broadcast to `shape` and lay out as contiguous float32 rows."""
+    return a.to(torch.float32).expand(shape).contiguous()
+
+
+def _per_lane(p: torch.Tensor, b: int, c: int) -> torch.Tensor:
+    """(B, 1, 1) parameter -> (B*C,) contiguous float32."""
+    return p.to(torch.float32).expand(b, c, 1).reshape(b * c).contiguous()
+
+
+def _require_cuda(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32 or x.ndim != 3:
+        raise ValueError(f"{name}: expected float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# K1: flanger / chorus delay line
+# ---------------------------------------------------------------------------
+
+
+def flanger_plain(x, delay_samples, feedback, depth, mix, max_delay_samples: int):
+    """Plain PyTorch version of K1 (the `_flanger_scan` contract): x / delay
+    (B, C, T); feedback / depth / mix (B, 1, 1); returns the dry/wet mixed,
+    clipped (B, C, T).  A Python loop over time."""
+    b, c, t = x.shape
+    d = int(max_delay_samples)
+    delay_samples = delay_samples.expand(b, c, t)
+    write_idx = torch.arange(t, device=x.device) % d
+    read_idx = torch.remainder(
+        write_idx.to(torch.float32) - delay_samples + d, d
+    )
+    prev_f = torch.floor(read_idx)
+    frac = read_idx - prev_f
+    prev_idx = prev_f.to(torch.int64)
+    next_idx = torch.remainder(prev_idx + 1, d)
+    fb = feedback[..., 0]
+    dp = depth[..., 0]
+    buf = torch.zeros(b, c, d, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    for i in range(t):
+        prev_val = torch.gather(buf, 2, prev_idx[:, :, i : i + 1])[..., 0]
+        next_val = torch.gather(buf, 2, next_idx[:, :, i : i + 1])[..., 0]
+        f = frac[:, :, i]
+        interp = f * next_val + (1.0 - f) * prev_val
+        x_t = x[:, :, i]
+        buf[:, :, i % d] = x_t + fb * interp
+        out[:, :, i] = x_t + dp * interp
+    out = (1.0 - mix) * x + mix * out
+    return torch.clamp(out, -1.0, 1.0)
+
+
+def flanger(x, delay_samples, feedback, depth, mix, max_delay_samples: int):
+    """K1 on CUDA tensors, the plain version on CPU tensors (see
+    `flanger_plain` for the contract)."""
+    if x.device.type == "cpu":
+        return flanger_plain(x, delay_samples, feedback, depth, mix, max_delay_samples)
+    _require_cuda(x, "flanger")
+    b, c, t = x.shape
+    d = int(max_delay_samples)
+    if d < 2:
+        raise ValueError("delay line must hold at least 2 samples")
+    lib = _load()
+    if lib.flanger_smem_bytes(d) > 232448:
+        raise ValueError(f"delay line of {d} samples exceeds a block's shared memory")
+    xs = x.contiguous()
+    ds = _lanes(delay_samples, x.shape)
+    fb, dp, mx = (_per_lane(p, b, c) for p in (feedback, depth, mix))
+    out = torch.empty_like(xs)
+    LAUNCHES["flanger"] += 1
+    _check(
+        lib.flanger_forward(
+            xs.data_ptr(), ds.data_ptr(), fb.data_ptr(), dp.data_ptr(),
+            mx.data_ptr(), out.data_ptr(), b * c, t, d,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        ),
+        "flanger",
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: phaser allpass cascade
+# ---------------------------------------------------------------------------
+
+
+def phaser_plain(x, g_all, feedback, mix, n_stages: int = 6):
+    """Plain PyTorch version of K2 (the `_phaser_scan` contract): x / g_all
+    (B, C, T), feedback / mix (B, 1, 1); returns the mixed wet signal
+    before clipping.  A Python loop over time."""
+    b, c, t = x.shape
+    g_all = g_all.expand(b, c, t)
+    big_g = g_all / (1.0 + g_all)
+    fb = feedback[..., 0]
+    states = [torch.zeros(b, c, dtype=torch.float32, device=x.device) for _ in range(n_stages)]
+    last = torch.zeros(b, c, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    for i in range(t):
+        gi = big_g[:, :, i]
+        u = x[:, :, i] + fb * last
+        for n in range(n_stages):
+            s = states[n]
+            v = gi * (u - s)
+            lp = v + s
+            states[n] = lp + v
+            u = 2.0 * lp - u
+        last = u
+        out[:, :, i] = u
+    return (1.0 - mix) * x + mix * out
+
+
+def phaser(x, g_all, feedback, mix, n_stages: int = 6):
+    """K2 on CUDA tensors, the plain version on CPU tensors (see
+    `phaser_plain` for the contract)."""
+    if x.device.type == "cpu":
+        return phaser_plain(x, g_all, feedback, mix, n_stages)
+    _require_cuda(x, "phaser")
+    b, c, t = x.shape
+    lib = _load()
+    if not 1 <= n_stages <= lib.phaser_max_stages():
+        raise ValueError(f"n_stages={n_stages} outside 1..{lib.phaser_max_stages()}")
+    xs = x.contiguous()
+    gs = _lanes(g_all, x.shape)
+    fb, mx = (_per_lane(p, b, c) for p in (feedback, mix))
+    out = torch.empty_like(xs)
+    LAUNCHES["phaser"] += 1
+    _check(
+        lib.phaser_forward(
+            xs.data_ptr(), gs.data_ptr(), fb.data_ptr(), mx.data_ptr(),
+            out.data_ptr(), b * c, t, n_stages,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        ),
+        "phaser",
+    )
+    return out

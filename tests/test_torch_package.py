@@ -1,0 +1,105 @@
+"""Package boundary of the PyTorch port: it imports no JAX and nothing of
+the JAX package, its entry points refuse a CUDA request without a card,
+and its kernel wrappers never answer a non-CPU tensor with the plain
+version."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import mod_extraction_tpu_torch
+from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_interwoven_batch
+from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
+from mod_extraction_tpu_torch.ops import fx_kernels
+from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
+from mod_extraction_tpu_torch.train.render import RenderConfig
+from mod_extraction_tpu_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "mod_extraction_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mod_extraction_tpu")
+R7 = "models/lfo_2dcnn_io_sa_25_25_no_ch_ln__interwoven_idmt_all_live_r7.npz"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    # whole top-level name: `mod_extraction_tpu_torch` is not the JAX package
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_no_jax_imports_in_package_or_chip_smoke():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [
+        (str(f.relative_to(ROOT)), m)
+        for f in files
+        for m in _imported_modules(f)
+        if _forbidden(m)
+    ]
+    assert not bad, bad
+    assert _forbidden("mod_extraction_tpu.ops.fx")
+    assert not _forbidden("mod_extraction_tpu_torch.ops.fx")
+
+
+def test_package_imports_with_jax_blocked():
+    mods = [
+        m.name
+        for m in pkgutil.walk_packages(
+            mod_extraction_tpu_torch.__path__, "mod_extraction_tpu_torch."
+        )
+    ]
+    assert "mod_extraction_tpu_torch.train.lfo_task" in mods
+    code = (
+        "import sys, importlib\n"
+        f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(sr=44100.0, n_samples=4410, effects=(2,), max_delay_samples=485)
+    model = Spectral2DCNN(in_ch=2, n_samples=4410, out_channels=(4,), n_mels=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LFOExtractionTask(model, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_spectral_2dcnn(R7, in_ch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_to_torch(make_interwoven_batch(0, 3, 4410, 44100.0))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU never takes the plain version."""
+    x = torch.empty(2, 1, 64, device="meta")
+    p = torch.empty(2, 1, 1, device="meta")
+    fx_kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="meta"):
+        fx_kernels.flanger(x, x, p, p, p, 16)
+    with pytest.raises(RuntimeError, match="meta"):
+        fx_kernels.phaser(x, x, p, p, 6)
+    assert fx_kernels.LAUNCHES == {"flanger": 0, "phaser": 0}
