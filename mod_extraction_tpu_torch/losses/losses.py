@@ -1,6 +1,6 @@
-"""Losses of the stage-1 extractor (port of part of
-`mod_extraction_tpu/losses/losses.py`): l1, mse, fdl1, sdl1 and the
-weighted loss dict.  Every loss is `(y_hat, y, weights=None) -> scalar`,
+"""Losses (port of part of `mod_extraction_tpu/losses/losses.py`): l1,
+mse, fdl1 and sdl1 for the stage-1 extractor, esr and dc for the stage-2
+effect model, and the weighted loss dict.  Every loss is `(y_hat, y, weights=None) -> scalar`,
 with `weights` an optional (B,) per-example weight."""
 
 from __future__ import annotations
@@ -28,6 +28,21 @@ def mse_loss(y_hat, y, weights=None):
     return _wmean((y_hat - y) ** 2, weights)
 
 
+def esr_loss(y_hat, y, weights=None, eps: float = 1e-8):
+    """Error-to-signal ratio: per (B, C) the error energy over the target
+    energy along the last dim, then the mean."""
+    num = ((y - y_hat) ** 2).sum(dim=-1)
+    denom = (y**2).sum(dim=-1) + eps
+    return _wmean(num / denom, weights)
+
+
+def dc_loss(y_hat, y, weights=None, eps: float = 1e-8):
+    """DC offset: squared mean error over the mean target energy."""
+    num = (y - y_hat).mean(dim=-1) ** 2
+    denom = (y**2).mean(dim=-1) + eps
+    return _wmean(num / denom, weights)
+
+
 def _central_diff(x):
     return (x[..., 2:] - x[..., :-2]) / 2.0
 
@@ -51,6 +66,8 @@ _LOSS_REGISTRY: Dict[str, LossFn] = {
     "fdl1": first_derivative_l1_loss,
     "sdl1": second_derivative_l1_loss,
     "mse": mse_loss,
+    "esr": esr_loss,
+    "dc": dc_loss,
 }
 
 

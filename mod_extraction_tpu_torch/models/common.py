@@ -3,10 +3,17 @@ in NCHW layout."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
+    """flax `lecun_normal`: truncated normal in [-2, 2] std, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
 class PReLU(nn.Module):

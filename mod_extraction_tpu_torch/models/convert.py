@@ -1,10 +1,13 @@
-"""Flax-layout weights -> the port's `Spectral2DCNN` state_dict.
+"""Flax-layout weights -> the port's `Spectral2DCNN` and `LSTMEffectModel`
+state_dicts.
 
-Reads the shipped `.npz` files (keys `Conv_{i}/kernel` (kh, kw, I, O),
-`Conv_{i}/bias`, `PReLU_{i}/alpha`, `Dense_0/kernel` (I, O), `Dense_0/bias`)
-or a nested dict of numpy arrays from a live flax tree (`params` level
-optional).  HWIO kernels become OIHW, Dense (I, O) becomes Linear (O, I).
-The inverse direction of `mod_extraction_tpu/models/torch_port.py`.
+Reads the shipped `.npz` files or a nested dict of numpy arrays from a live
+flax tree (`params` level optional).  Spectral2DCNN keys: `Conv_{i}/kernel`
+(kh, kw, I, O), `Conv_{i}/bias`, `PReLU_{i}/alpha`, `Dense_0/kernel` (I, O),
+`Dense_0/bias`; HWIO kernels become OIHW, Dense (I, O) becomes Linear
+(O, I) (the inverse direction of `mod_extraction_tpu/models/torch_port.py`).
+LSTM keys: `w_ih` (in_dim, 4H), `w_hh` (H, 4H), `b_gates` (4H,),
+`fc/kernel` (H, out), `fc/bias` (out,), kept in that layout.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
 from mod_extraction_tpu_torch.utils.device import resolve_device
 
@@ -29,14 +33,18 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def flax_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """`.npz` path or flax param tree -> `Spectral2DCNN.state_dict()`."""
+def _flat_weights(weights: str | Mapping[str, Any]) -> Dict[str, np.ndarray]:
     if isinstance(weights, str):
         with np.load(weights) as f:
             flat = {k: np.array(f[k], np.float32) for k in f.files}
     else:
         flat = _flatten(weights)
-    flat = {k.removeprefix("params/"): v for k, v in flat.items()}
+    return {k.removeprefix("params/"): v for k, v in flat.items()}
+
+
+def flax_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`.npz` path or flax param tree -> `Spectral2DCNN.state_dict()`."""
+    flat = _flat_weights(weights)
     n_layers = sum(1 for k in flat if k.startswith("Conv_") and k.endswith("/kernel"))
     sd: Dict[str, torch.Tensor] = {}
     for i in range(n_layers):
@@ -57,4 +65,32 @@ def load_spectral_2dcnn(
     device = resolve_device(device)
     model = Spectral2DCNN(**model_kwargs)
     model.load_state_dict(flax_to_state_dict(weights))
+    return model.to(device)
+
+
+_LSTM_KEYS = {
+    "w_ih": "w_ih", "w_hh": "w_hh", "b_gates": "b_gates",
+    "fc/kernel": "fc_kernel", "fc/bias": "fc_bias",
+}
+
+
+def flax_lstm_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`.npz` path or flax param tree -> `LSTMEffectModel.state_dict()`."""
+    flat = _flat_weights(weights)
+    return {ours: torch.from_numpy(np.ascontiguousarray(flat[theirs]))
+            for theirs, ours in _LSTM_KEYS.items()}
+
+
+def load_lstm_effect_model(
+    weights: str | Mapping[str, Any], device: str | torch.device = "cuda"
+) -> LSTMEffectModel:
+    """A mono-input `LSTMEffectModel` holding `weights`, on `device`; the
+    hidden, latent and output sizes are read from the weights."""
+    device = resolve_device(device)
+    sd = flax_lstm_to_state_dict(weights)
+    model = LSTMEffectModel(
+        in_ch=1, out_ch=sd["fc_kernel"].shape[1], n_hidden=sd["w_hh"].shape[0],
+        latent_dim=sd["w_ih"].shape[0] - 1,
+    )
+    model.load_state_dict(sd)
     return model.to(device)

@@ -15,7 +15,6 @@ gradients arrive in float32.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -24,18 +23,13 @@ from torch import nn
 from mod_extraction_tpu_torch.models.common import (
     PReLU,
     layer_norm_no_affine,
+    lecun_normal_,
     max_pool_floor,
 )
 from mod_extraction_tpu_torch.ops.conv import conv2d_same
 from mod_extraction_tpu_torch.ops.stft import mel_spectrogram, spec_augment
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
-    """flax `lecun_normal`: truncated normal in [-2, 2] std, variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
 class Spectral2DCNN(nn.Module):
@@ -83,13 +77,13 @@ class Spectral2DCNN(nn.Module):
         prev = in_ch
         for c in chans:
             conv = nn.Conv2d(prev, c, (kf, kt))
-            _lecun_normal_(conv.weight.data, kf * kt * prev, gen)
+            lecun_normal_(conv.weight.data, kf * kt * prev, gen)
             nn.init.zeros_(conv.bias)
             self.convs.append(conv)
             self.prelus.append(PReLU(c))
             prev = c
         self.out = nn.Linear(prev, latent_dim)
-        _lecun_normal_(self.out.weight.data, prev, gen)
+        lecun_normal_(self.out.weight.data, prev, gen)
         nn.init.zeros_(self.out.bias)
 
     def forward(

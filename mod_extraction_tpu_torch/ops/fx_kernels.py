@@ -16,21 +16,11 @@ use into `_build/` (git-ignored) and bound with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fx.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from mod_extraction_tpu_torch.ops import cuda_build
 
 #: Kernel launches per wrapper since the last `reset_launch_counts()`.
 LAUNCHES = {"flanger": 0, "phaser": 0}
@@ -43,38 +33,9 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
 def build(verbose: bool = False) -> Path:
-    """Compile `csrc/fx.cu` for sm_90a (cached by source hash); returns the
-    library path.  With `verbose`, prints nvcc's ptxas report."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libfx_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib_path
+    """Compile `csrc/fx.cu` for sm_90a (see `cuda_build.build`)."""
+    return cuda_build.build("fx.cu", verbose)
 
 
 def _load():

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 flanger/chorus delay line, K2 phaser cascade)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 flanger/chorus delay line, K2 phaser cascade,
+K3/K4/K5 LSTM effect model) against their plain PyTorch versions on the
+card.
 
 Marked `cuda`; each test skips without a GPU (the kernels have no interpret
 mode).  This file imports torch, numpy and the port only, so it also runs
@@ -7,9 +8,10 @@ on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance: 1e-4 max-abs, the kernel tolerance of
-`scripts/tpu_parity_gate.py` (the kernel and the plain version round the
-same float32 recurrence in a different order of fused operations)."""
+Tolerances, those of `scripts/tpu_parity_gate.py` (the kernel and the
+plain version round the same float32 recurrence in a different order of
+fused operations): 1e-4 max-abs on outputs and states; every gradient leaf
+within 5e-4 of its largest magnitude."""
 
 import numpy as np
 import pytest
@@ -20,10 +22,11 @@ from mod_extraction_tpu_torch.data.synthetic import (
     flanger_max_delay_samples,
     make_interwoven_batch,
 )
-from mod_extraction_tpu_torch.ops import fx_kernels
+from mod_extraction_tpu_torch.ops import fx_kernels, lstm_kernels
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 
 TOL = 1e-4
+GRAD_REL = 5e-4
 
 
 def _need_cuda():
@@ -80,3 +83,82 @@ def test_render_batch_on_card_matches_cpu():
     _, wet_cpu, mod_cpu, _ = render_batch(batch_to_torch(batch, "cpu"), cfg)
     assert (wet_gpu.cpu() - wet_cpu).abs().max().item() <= TOL
     assert (mod_gpu.cpu() - mod_cpu).abs().max().item() <= 1e-5
+
+
+def _lstm_inputs(b, t, hid, in_dim=2, seed=0):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(hid)
+    seq = _u(rng, 0.0, 1.0, (b, in_dim, t))
+    seq[:, -1] = 0.3 * torch.as_tensor(rng.standard_normal((b, t)).astype(np.float32), device="cuda")
+    return dict(
+        seq=seq, xres=seq[:, -1:].contiguous(),
+        h0=_u(rng, -0.3, 0.3, (b, hid)), c0=_u(rng, -0.3, 0.3, (b, hid)),
+        w_ih=_u(rng, -k, k, (in_dim, 4 * hid)), w_hh=_u(rng, -k, k, (hid, 4 * hid)),
+        b=_u(rng, -k, k, (4 * hid,)), fc_k=_u(rng, -k, k, (hid, 1)), fc_b=_u(rng, -k, k, (1,)),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [16, 64, 160])
+def test_lstm_forward_kernels_match_plain(hid):
+    """K3 and K4 (y, hn, cn and K4's saved hs, cs) at B 5, T 300."""
+    _need_cuda()
+    a = _lstm_inputs(5, 300, hid)
+    lstm_kernels.reset_launch_counts()
+    out3 = lstm_kernels.lstm_forward(**a)
+    out4 = lstm_kernels.lstm_train_forward(**a)
+    assert lstm_kernels.LAUNCHES["lstm_forward"] == lstm_kernels.LAUNCHES["lstm_train_forward"] == 1
+    ref = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    for got, want in zip(out3, ref[:3]):
+        assert (got - want).abs().max().item() <= TOL
+    for got, want in zip(out4, ref):
+        assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [16, 64, 160])
+def test_lstm_backward_kernel_matches_plain(hid):
+    """K5 against the plain reverse loop on the same saved states, and
+    bit-identical from run to run (fixed-order reduction)."""
+    _need_cuda()
+    a = _lstm_inputs(5, 300, hid, seed=1)
+    _, _, _, hs, cs = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dh_in = torch.randn(5, 300, hid, device="cuda", generator=g)
+    dhn, dcn = (torch.randn(5, hid, device="cuda", generator=g) for _ in range(2))
+    args = (a["seq"], hs, cs, a["h0"], a["c0"], a["w_ih"], a["w_hh"], a["b"], dh_in, dhn, dcn)
+    got = lstm_kernels.lstm_backward(*args)
+    again = lstm_kernels.lstm_backward(*args)
+    want = lstm_kernels.lstm_backward_plain(*args)
+    for x, y, z in zip(got, want, again):
+        assert x.shape == y.shape
+        assert (x - y).abs().max().item() <= GRAD_REL * y.abs().max().item()
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_lstm_training_pair_matches_autograd_of_plain():
+    """The K4/K5 autograd function against autograd through the plain
+    forward: the loss and every gradient leaf, dh0 and dc0 included."""
+    _need_cuda()
+    a = _lstm_inputs(4, 257, 64, seed=2)
+    x, lat = a["seq"][:, 1:].contiguous(), a["seq"][:, :1].contiguous()
+    tgt = torch.randn(4, 1, 257, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    names = ("w_ih", "w_hh", "b", "fc_k", "fc_b")
+
+    def grads(fn):
+        leaves = [a[n].clone().requires_grad_() for n in names]
+        xs, ls, h0, c0 = (v.clone().requires_grad_() for v in (x, lat, a["h0"], a["c0"]))
+        y, hn, cn = fn(*leaves, xs, ls, h0, c0)
+        loss = ((y - tgt) ** 2).mean() + (hn**2).mean() + (cn**2).mean()
+        loss.backward()
+        return loss.item(), [v.grad for v in (*leaves, xs, ls, h0, c0)]
+
+    def plain(w_ih, w_hh, b, fc_k, fc_b, xs, ls, h0, c0):
+        return lstm_kernels.lstm_forward_plain(torch.cat([ls, xs], 1), xs, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
+
+    loss_k, g_k = grads(lstm_kernels.lstm_effect_model_train)
+    loss_p, g_p = grads(plain)
+    assert abs(loss_k - loss_p) <= 1e-6 + 1e-4 * abs(loss_p)
+    for got, want in zip(g_k, g_p):
+        assert (got - want).abs().max().item() <= GRAD_REL * want.abs().max().item()

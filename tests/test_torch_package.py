@@ -16,9 +16,11 @@ import mod_extraction_tpu_torch
 from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_interwoven_batch
 from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
-from mod_extraction_tpu_torch.ops import fx_kernels
+from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
+from mod_extraction_tpu_torch.ops import fx_kernels, lstm_kernels
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
 from mod_extraction_tpu_torch.train.render import RenderConfig
+from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 from mod_extraction_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -89,6 +91,8 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         load_spectral_2dcnn(R7, in_ch=2)
     with pytest.raises(RuntimeError, match="CUDA"):
+        TBPTTEffectModelingTask(LSTMEffectModel(n_hidden=8), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
         batch_to_torch(make_interwoven_batch(0, 3, 4410, 44100.0))
     assert resolve_device("cpu").type == "cpu"
 
@@ -103,3 +107,22 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(RuntimeError, match="meta"):
         fx_kernels.phaser(x, x, p, p, 6)
     assert fx_kernels.LAUNCHES == {"flanger": 0, "phaser": 0}
+
+
+def test_lstm_kernel_wrappers_do_not_fall_back_off_the_cpu():
+    """Neither K3, K4 nor K5 answers a non-CPU tensor with its plain
+    version."""
+    b, t, hid = 2, 16, 8
+    m = dict(device="meta")
+    seq, xres = torch.empty(b, 2, t, **m), torch.empty(b, 1, t, **m)
+    h = torch.empty(b, hid, **m)
+    w = (torch.empty(2, 4 * hid, **m), torch.empty(hid, 4 * hid, **m), torch.empty(4 * hid, **m),
+         torch.empty(hid, 1, **m), torch.empty(1, **m))
+    lstm_kernels.reset_launch_counts()
+    for fn in (lstm_kernels.lstm_forward, lstm_kernels.lstm_train_forward):
+        with pytest.raises(RuntimeError, match="meta"):
+            fn(seq, xres, h, h, *w)
+    hs = torch.empty(b, t, hid, **m)
+    with pytest.raises(RuntimeError, match="meta"):
+        lstm_kernels.lstm_backward(seq, hs, hs, h, h, *w[:3], hs, h, h)
+    assert set(lstm_kernels.LAUNCHES.values()) == {0}
