@@ -4,13 +4,18 @@
 
 Builds the port's CUDA kernels from `mod_extraction_tpu_torch/csrc/` (one
 `nvcc` per source, started together), holds each against its plain PyTorch
-version on the card, then drives both ported paths through the port's entry
+version on the card, then drives the ported paths through the port's entry
 points at full width:
 
 * stage 1, the extractor step: the paper Spectral2DCNN (6x64 channels, 256
   mels, 2 s clips at 44.1 kHz, bf16 convs) holding the shipped r7 weights, a
   `val_step` and a few AdamW `train_step`s on interwoven (flanger + chorus +
   phaser) synthetic batches of 32 (kernels K1, K2);
+* the same step in its hand-written weight-gradient configuration,
+  `Spectral2DCNN(wgrad_impl="pallas")`: the five 64-channel trunk layers take
+  their weight gradient from the CUDA kernel K6 (kernels K1, K2, K6), held
+  against the default configuration from the same weights, batch and
+  SpecAugment draws, and timed beside the other conv configurations;
 * stage 2, TBPTT effect-model training as configured by
   `configs/train_em_sim_flanger_r7.yml`: the shipped LSTM-64 conditioned on
   the frozen r7 extractor (bf16), flanger batches of 32, a 1024-sample
@@ -71,9 +76,18 @@ N_TBPTT_STEPS = 2  # timed, after one warm-up step
 # gradient is zeroed reads far above the limit (printed and required below).
 # AdamW is blind to a gradient's scale, which the kernel checks above hold.
 PARAM_ATOL = 1e-5
-# H100 SXM published peaks: HBM bytes/s and
-# float32 operations/s outside the tensor cores.
-HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+# H100 SXM published peaks: HBM bytes/s, float32 operations/s outside the
+# tensor cores, dense bf16 operations/s in them.
+HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
+# K6 (conv weight gradient): sums of exact bf16 products in another order
+# than the plain version; against float32 its bf16 operands show.  The
+# bounds of scripts/tpu_parity_gate.py, relative to the largest |dW|.
+WGRAD_PLAIN_REL, WGRAD_F32_REL = 1e-3, 2e-2
+# (mel bins entering the layer, time dilation) of the 64-channel trunk layers
+# of the paper config: 256 mels halved by each layer's pool, 345 frames
+WGRAD_LAYERS = ((128, 1), (64, 2), (32, 4), (16, 8), (8, 16))
+N_FRAMES, TRUNK_CH, KF, KT = N_SAMPLES // 256 + 1, 64, 5, 13
+N_WGRAD_STEPS = 3  # timed, after one warm-up step
 
 
 def fail(msg: str) -> None:
@@ -103,6 +117,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a - b).abs().max().item()
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return max_abs(a, b) / max(b.abs().max().item(), 1e-30)
 
 
 def check_kernels_small(fxk, rng) -> None:
@@ -153,11 +171,13 @@ def profile_train_step(task, batch, label: str, top: int = 15) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:110]}")
 
 
-def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms):
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms,
+               ops_rate=F32_OPS_S):
     """One entry of the `kernels` JSON line; the bound is the larger of the
-    bytes over the HBM rate and the float32 operations over the peak."""
+    bytes over the HBM rate and the operations over the peak rate for their
+    type (float32 outside the tensor cores unless `ops_rate` says bf16)."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_ops / F32_OPS_S * 1e3
+    t_ops = n_ops / ops_rate * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -289,6 +309,193 @@ def run_stage1(fxk, rng) -> list:
 
 
 # ---------------------------------------------------------------------------
+# stage 1 in its hand-written weight-gradient configuration (K1, K2, K6)
+# ---------------------------------------------------------------------------
+
+
+def wgrad_ops_bytes(b, f, t, ci, co, kf=KF, kt=KT):
+    """(bf16 operations, bytes) one K6 launch needs: two operations per
+    product of the contraction; x and dy read once in bf16, dW written once
+    in float32."""
+    return 2 * b * f * t * kf * kt * ci * co, 2 * b * f * t * (ci + co) + 4 * kf * kt * ci * co
+
+
+def library_wgrad(x, g, dil):
+    """One library call that computes K6's function (bf16, the weight
+    gradient alone), in the time-phase form `conv2d_same` gives a dilated
+    layer; the operands are prepared outside the timed region."""
+    from mod_extraction_tpu_torch.ops.conv import time_phases
+
+    xph, gph = time_phases(x, dil).contiguous(), time_phases(g, dil).contiguous()
+    w = torch.empty(g.shape[1], x.shape[1], KF, KT, dtype=x.dtype, device=x.device)
+    return lambda: torch.ops.aten.convolution_backward(
+        gph, xph, w, None, [1, 1], [KF // 2, KT // 2], [1, 1], False, [0, 0], 1,
+        [False, True, False],
+    )[1]
+
+
+def check_wgrad(ck, x, g, dil, label):
+    """K6 against its plain version and the float32 reference, and two
+    launches against each other; returns (error vs plain relative to the
+    largest |dW|, the plain version's ms)."""
+    got = ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil)
+    again = ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil)
+    ref_out = []
+    plain_ms = cuda_ms(lambda: ref_out.append(ck.conv2d_wgrad_plain(x, g, KF, KT, dil)), 1)
+    ref = ck.conv2d_wgrad_reference(x, g, KF, KT, dil)
+    scale = ref.abs().max().item()
+    e_plain, e_ref = max_abs(got, ref_out[0]) / scale, max_abs(got, ref) / scale
+    same = torch.equal(got, again)
+    print(f"[K6 {label}] vs plain {e_plain:.3e} (limit {WGRAD_PLAIN_REL})  vs float32 reference "
+          f"{e_ref:.3e} (limit {WGRAD_F32_REL})  relaunch bit-identical: {same}")
+    if not e_plain <= WGRAD_PLAIN_REL:
+        fail(f"K6 {label} disagrees with its plain version: {e_plain}")
+    if not e_ref <= WGRAD_F32_REL:
+        fail(f"K6 {label} disagrees with the float32 reference: {e_ref}")
+    if not same:
+        fail(f"K6 {label}: two launches on the same inputs differ")
+    return e_plain, plain_ms
+
+
+def run_stage1_kernel_wgrad(fxk, ck, rng) -> list:
+    from mod_extraction_tpu_torch.data.synthetic import (
+        batch_to_torch,
+        flanger_max_delay_samples,
+        make_interwoven_batch,
+    )
+    from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+    from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+
+    def rand(*shape):
+        a = (0.3 * rng.standard_normal(shape)).astype(np.float32)
+        return torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+
+    # -- the kernel against its plain version: a small shape with ragged
+    #    edges (T a multiple of no tile, few channels), then the path's shapes
+    check_wgrad(ck, rand(2, 16, 6, 57), rand(2, 8, 6, 57), 4, "small B=2 ci=16 co=8 F=6 T=57 dil=4")
+    layers = []
+    for f, dil in WGRAD_LAYERS:
+        x, g = rand(BATCH, TRUNK_CH, f, N_FRAMES), rand(BATCH, TRUNK_CH, f, N_FRAMES)
+        label = f"B={BATCH} F={f} T={N_FRAMES} dil={dil}"
+        err, plain_ms = check_wgrad(ck, x, g, dil, label)
+        n_ops, n_bytes = wgrad_ops_bytes(BATCH, f, N_FRAMES, TRUNK_CH, TRUNK_CH)
+        ms = cuda_ms(lambda: ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil), 5)
+        lib = library_wgrad(x, g, dil)
+        lib()
+        library_ms = cuda_ms(lib, 5)
+        bound_ms = max(n_ops / BF16_OPS_S, n_bytes / HBM_BYTES_S) * 1e3
+        print(f"[K6 {label}] ms={ms:.3f} bound_ms={bound_ms:.3f} (operations) "
+              f"tflops={n_ops / ms / 1e9:.1f} library_ms={library_ms:.3f} plain_ms={plain_ms:.1f}")
+        layers.append(dict(bins=f, dil=dil, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, err=err, n_ops=n_ops, n_bytes=n_bytes))
+        del x, g, lib
+    torch.cuda.empty_cache()
+
+    # -- the main path, counted per step
+    d = flanger_max_delay_samples(30.0, 10.0, SR)
+    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2, 3), max_delay_samples=d)
+
+    def make_task(**opts):
+        model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16", **opts)
+        return LFOExtractionTask(model, cfg, loss_dict=LOSSES, device="cuda", seed=0)
+
+    batches = [
+        batch_to_torch(make_interwoven_batch(100 + s, BATCH, N_SAMPLES, SR))
+        for s in range(N_WGRAD_STEPS + 1)
+    ]
+    task = make_task(wgrad_impl="pallas")
+    keys = ("flanger", "phaser", "conv_wgrad")
+    per_step = dict(flanger=1, phaser=1, conv_wgrad=len(WGRAD_LAYERS))
+    total = dict.fromkeys(keys, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i, tb in enumerate(batches):
+        fxk.reset_launch_counts()
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = task.train_step(tb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = {**fxk.LAUNCHES, **ck.LAUNCHES}
+        if any(c[k] != per_step[k] for k in keys):
+            fail(f"wgrad_impl='pallas' train_step {i}: launches {c}, expected {per_step}")
+        total = {k: total[k] + c[k] for k in keys}
+        if i > 0:  # step 0 warms up the allocator and the cuDNN plans
+            step_s.append(dt)
+        print(f"[wgrad=pallas train_step {i}] loss={metrics['loss'].item():.6f} wall={dt * 1e3:.2f} ms "
+              f"launches={c}")
+        if not all(math.isfinite(v.item()) for v in metrics.values()):
+            fail(f"non-finite metrics in the wgrad_impl='pallas' step: {metrics}")
+    if not all(torch.isfinite(p).all().item() for p in task.model.parameters()):
+        fail("non-finite parameters after the wgrad_impl='pallas' train steps")
+    print(f"[stage 1 wgrad=pallas main path] launches={total} mean_step_ms={np.mean(step_s) * 1e3:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+
+    # -- one backward in this configuration and one in the default, from the
+    #    same weights, batch and SpecAugment draws
+    draws = torch.tensor([0.31, 0.62, 0.47, 0.15])
+    grads = {}
+    for name, opts in (("pallas", dict(wgrad_impl="pallas")), ("default", {})):
+        t = make_task(**opts)
+        t.model.train()
+        loss, _ = t._loss(batches[0], None, draws)
+        loss.backward()
+        grads[name] = (loss.item(), {k: p.grad.detach().clone() for k, p in t.model.named_parameters()})
+        del t
+    (loss_k, g_k), (loss_d, g_d) = grads["pallas"], grads["default"]
+    worst = max(
+        (rel_err(g_k[k], g_d[k]), k) for k in g_d if k.startswith("convs.") and k.endswith(".weight")
+    )
+    others = max(rel_err(g_k[k], g_d[k]) for k in g_d if not k.endswith(".weight") or k.startswith("out."))
+    print(f"[wgrad=pallas vs default backward] loss {loss_k:.8f}/{loss_d:.8f} conv weight gradients "
+          f"max_rel={worst[0]:.3e} ({worst[1]}; limit {WGRAD_F32_REL}) other leaves max_rel={others:.3e}")
+    if loss_k != loss_d:
+        fail(f"the two configurations share their forward, yet the losses differ: {loss_k} vs {loss_d}")
+    if not worst[0] <= WGRAD_F32_REL:
+        fail(f"conv weight gradient {worst[1]} of the kernel configuration differs by {worst[0]}")
+    if not others <= WGRAD_F32_REL:
+        fail(f"a gradient that K6 does not compute differs between the configurations: {others}")
+
+    # -- the train step in each conv configuration, taking turns
+    configs = {
+        "wgrad=xla (default)": {}, "wgrad=pallas": dict(wgrad_impl="pallas"),
+        "wgrad=s2b": dict(wgrad_impl="s2b"), "conv=pair": dict(conv_impl="pair"),
+    }
+    tasks = {name: make_task(**opts) for name, opts in configs.items()}
+    times = {name: [] for name in configs}
+    for rnd in range(N_WGRAD_STEPS + 1):
+        for name, t in tasks.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(batches[rnd])
+            torch.cuda.synchronize()
+            if rnd > 0:
+                times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        print(f"[stage 1 train_step {name}] batch={BATCH} mean_step_ms={np.mean(ts) * 1e3:.3f} "
+              f"min_step_ms={min(ts) * 1e3:.3f}")
+    profile_train_step(tasks["wgrad=pallas"], batches[1], "stage 1 wgrad=pallas")
+
+    def total_of(key):
+        return sum(layer[key] for layer in layers)
+
+    row = kernel_row(
+        "conv_wgrad_tapcat", "mod_extraction_tpu_torch/csrc/conv_wgrad.cu",
+        "mod_extraction_tpu/ops/pallas_conv.py:51", total["conv_wgrad"],
+        max(layer["err"] for layer in layers), total_of("ms"), total_of("plain_ms"),
+        total_of("n_bytes"), total_of("n_ops"), total_of("library_ms"), ops_rate=BF16_OPS_S,
+    )
+    # ms, plain_ms, bound_ms and library_ms are sums over the five launches of
+    # one train step; max_abs_err is relative to the largest |dW|
+    row["layers"] = [{k: layer[k] for k in ("bins", "dil", "ms", "plain_ms", "library_ms", "bound_ms")}
+                     for layer in layers]
+    return [row]
+
+
+# ---------------------------------------------------------------------------
 # stage 2: TBPTT effect-model training (K1, K3, K4, K5)
 # ---------------------------------------------------------------------------
 
@@ -307,10 +514,6 @@ def lstm_inputs(rng, b, t, hid, in_dim=2):
         w_ih=u(-k, k, (in_dim, 4 * hid)), w_hh=u(-k, k, (hid, 4 * hid)), b=u(-k, k, (4 * hid,)),
         fc_k=u(-k, k, (hid, 1)), fc_b=u(-k, k, (1,)),
     )
-
-
-def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return max_abs(a, b) / max(b.abs().max().item(), 1e-30)
 
 
 def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
@@ -645,6 +848,7 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is False; this smoke run needs a GPU",
               file=sys.stderr)
         return 1
+    from mod_extraction_tpu_torch.ops import conv_kernels as ck
     from mod_extraction_tpu_torch.ops import cuda_build
     from mod_extraction_tpu_torch.ops import fx_kernels as fxk
     from mod_extraction_tpu_torch.ops import lstm_kernels as lk
@@ -657,13 +861,17 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda src: cuda_build.build(src, verbose=True), ("fx.cu", "lstm.cu")))
+    sources = ("fx.cu", "lstm.cu", "conv_wgrad.cu")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(lambda src: cuda_build.build(src, verbose=True), sources))
     print(f"[build] {' '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     rows = run_stage1(fxk, rng)
     print(f"[stage 1 total] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += run_stage1_kernel_wgrad(fxk, ck, rng)
+    print(f"[stage 1 (wgrad=pallas) total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows += run_stage2(fxk, lk, rng)
     print(f"[stage 2 total] {time.perf_counter() - t0:.1f} s")

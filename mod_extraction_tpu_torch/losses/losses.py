@@ -1,13 +1,22 @@
-"""Losses (port of part of `mod_extraction_tpu/losses/losses.py`): l1,
-mse, fdl1 and sdl1 for the stage-1 extractor, esr and dc for the stage-2
-effect model, and the weighted loss dict.  Every loss is `(y_hat, y, weights=None) -> scalar`,
-with `weights` an optional (B,) per-example weight."""
+"""Losses (port of `mod_extraction_tpu/losses/losses.py`): l1, mse, fdl1 and
+sdl1 for the stage-1 extractor, esr and dc for the stage-2 effect model, the
+two spectral losses (log_mel_l1, mrstft), and the weighted loss dict.  Every
+loss is `(y_hat, y, weights=None) -> scalar`, with `weights` an optional
+(B,) per-example weight.
+
+`mr_stft_loss` is auraloss's `MultiResolutionSTFTLoss` with its default
+resolutions: fft (1024, 2048, 512), hop (120, 240, 50), win (600, 1200,
+240), spectral-convergence + log-magnitude terms, torch.stft center=False
+semantics; like the JAX function it ignores `weights`."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from mod_extraction_tpu_torch.ops.stft import hann_window, mel_spectrogram
 
 
 def _wmean(per_example: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
@@ -59,6 +68,49 @@ def second_derivative_l1_loss(y_hat, y, weights=None):
     return _wmean(torch.abs(d2h - d2), weights)
 
 
+def log_mel_l1_loss(
+    y_hat, y, weights=None, sr=44100, n_fft=1024, hop=256, n_mels=256, eps=1e-7
+):
+    """L1 between log mel spectrograms of (B, C, T) audio."""
+    sh = torch.log(torch.clamp(mel_spectrogram(y_hat, int(sr), n_fft, hop, n_mels), min=eps))
+    st = torch.log(torch.clamp(mel_spectrogram(y, int(sr), n_fft, hop, n_mels), min=eps))
+    return _wmean(torch.abs(sh - st), weights)
+
+
+def _stft_mag(x, n_fft: int, hop: int, win_length: int):
+    """torch.stft(center=False) magnitude with a centred hann(win) padded to
+    n_fft, as auraloss's STFT: (N, T) -> (N, n_frames, n_freqs)."""
+    win = np.zeros(n_fft, np.float32)
+    off = (n_fft - win_length) // 2
+    win[off : off + win_length] = hann_window(win_length)
+    frames = x.unfold(-1, n_fft, hop) * torch.as_tensor(win, device=x.device)
+    spec = torch.fft.rfft(frames, dim=-1)
+    mag2 = spec.real**2 + spec.imag**2
+    return torch.sqrt(torch.clamp(mag2, min=1e-8))
+
+
+def mr_stft_loss(
+    y_hat,
+    y,
+    weights=None,
+    fft_sizes=(1024, 2048, 512),
+    hop_sizes=(120, 240, 50),
+    win_lengths=(600, 1200, 240),
+):
+    """Multi-resolution STFT loss: mean over resolutions of (spectral
+    convergence + log-magnitude L1)."""
+    yh = y_hat.reshape(-1, y_hat.shape[-1])
+    yt = y.reshape(-1, y.shape[-1])
+    total = 0.0
+    for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
+        mh = _stft_mag(yh, n_fft, hop, win)
+        mt = _stft_mag(yt, n_fft, hop, win)
+        sc = torch.linalg.norm(mt - mh) / torch.clamp(torch.linalg.norm(mt), min=1e-8)
+        log_mag = torch.mean(torch.abs(torch.log(mt) - torch.log(mh)))
+        total = total + sc + log_mag
+    return total / len(fft_sizes)
+
+
 LossFn = Callable[..., torch.Tensor]
 
 _LOSS_REGISTRY: Dict[str, LossFn] = {
@@ -68,6 +120,8 @@ _LOSS_REGISTRY: Dict[str, LossFn] = {
     "mse": mse_loss,
     "esr": esr_loss,
     "dc": dc_loss,
+    "mrstft": mr_stft_loss,
+    "log_mel_l1": log_mel_l1_loss,
 }
 
 

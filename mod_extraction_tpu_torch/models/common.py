@@ -19,26 +19,42 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
 class PReLU(nn.Module):
     """Per-channel PReLU on (B, C, ...) input.  The float32 alpha promotes
     the negative branch, so a bf16 input yields a float32 output (the JAX
-    trunk's `act_io_dtype="float32"` behaviour)."""
+    trunk's `act_io_dtype="float32"` behaviour).  `keep_dtype=True` computes
+    `alpha * x` in x's dtype instead, so a bf16 activation stream stays bf16
+    (`act_io_dtype="compute"`)."""
 
-    def __init__(self, num_parameters: int, init: float = 0.25):
+    def __init__(self, num_parameters: int, init: float = 0.25, keep_dtype: bool = False):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((num_parameters,), init))
+        self.keep_dtype = keep_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+        if self.keep_dtype:
+            a = a.to(x.dtype)
         return torch.where(x >= 0, x, a * x)
 
 
 def layer_norm_no_affine(
-    x: torch.Tensor, dims: Sequence[int], eps: float = 1e-5
+    x: torch.Tensor,
+    dims: Sequence[int],
+    eps: float = 1e-5,
+    stat_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Affine-free LayerNorm over `dims`, statistics and result in float32
-    (biased variance, as torch and jnp.var)."""
-    x = x.to(torch.float32)
-    mean = x.mean(dim=tuple(dims), keepdim=True)
-    var = x.var(dim=tuple(dims), keepdim=True, unbiased=False)
-    return (x - mean) / torch.sqrt(var + eps)
+    """Affine-free LayerNorm over `dims` (biased variance, as torch and
+    jnp.var).  By default statistics and result are float32.  With
+    `stat_dtype` set, the statistics and the arithmetic run in that dtype
+    and the RESULT is cast back to x's dtype, so the tensor that is kept
+    stays narrow while the reductions keep full precision."""
+    if stat_dtype is None:
+        x = x.to(torch.float32)
+        mean = x.mean(dim=tuple(dims), keepdim=True)
+        var = x.var(dim=tuple(dims), keepdim=True, unbiased=False)
+        return (x - mean) / torch.sqrt(var + eps)
+    xs = x.to(stat_dtype)
+    mean = xs.mean(dim=tuple(dims), keepdim=True)
+    var = xs.var(dim=tuple(dims), keepdim=True, unbiased=False)
+    return ((xs - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class _MaxPoolEqMask(torch.autograd.Function):

@@ -11,6 +11,13 @@ main path) with bf16 outputs and bias, float32 head.  The trunk runs NCHW
 internally; the public input and output shapes are those of the JAX module.
 Parameters live in float32; the bf16 casts sit inside the forward, so
 gradients arrive in float32.
+
+The compute-path options keep the JAX package's names and values, so a
+model config written for it loads unchanged: `conv_impl` "lax" /
+"freq_folded" / "pair", `wgrad_impl` "xla" (the library's weight gradient) /
+"pallas" (the hand-written CUDA kernel, `ops/conv_kernels.py`) / "s2b",
+`grad_barrier` False / True / "all" / "l0", `stft_impl`, `act_io_dtype`.
+None of them changes a parameter's name or shape.
 """
 
 from __future__ import annotations
@@ -26,10 +33,53 @@ from mod_extraction_tpu_torch.models.common import (
     lecun_normal_,
     max_pool_floor,
 )
-from mod_extraction_tpu_torch.ops.conv import conv2d_same
+from mod_extraction_tpu_torch.ops.conv import conv2d_freq_folded, conv2d_same, foldable
+from mod_extraction_tpu_torch.ops.conv_kernels import (
+    make_conv2d_custom,
+    pair_supported,
+    wgrad_supported,
+)
 from mod_extraction_tpu_torch.ops.stft import mel_spectrogram, spec_augment
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def trunk_conv(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    bin_dil: int,
+    temp_dil: int,
+    conv_impl: str = "lax",
+    wgrad_impl: str = "xla",
+    grad_barrier: bool = False,
+) -> torch.Tensor:
+    """One trunk conv + bias on the selected compute path (the JAX
+    `_TrunkConv`): x (B, I, F, T), w OIHW, all in the compute dtype.  A layer
+    that an option does not cover takes the plain `conv2d_same`.
+
+    Without "pair" the data gradient is autograd of the forward conv, the
+    library's own backward-data pass.  (The JAX module names "lax" there,
+    which XLA lowers to the same transposed conv as autodiff does; in
+    PyTorch the explicit flipped-kernel conv that "lax" means in
+    `make_conv2d_custom` is another sum order than the library's pass.)"""
+    f, ci = x.shape[2], x.shape[1]
+    pair_ok = conv_impl == "pair" and pair_supported(w.shape, bin_dil, f)
+    wgrad_ok = wgrad_impl == "pallas" and wgrad_supported(w.shape, bin_dil, ci)
+    # the s2b framing only reshapes and strides: any bin-dilation-1 layer
+    s2b_ok = wgrad_impl == "s2b" and bin_dil == 1
+    if conv_impl == "freq_folded" and foldable(w.shape, bin_dil, f):
+        return conv2d_freq_folded(x, w, b, bin_dil, temp_dil)
+    if (pair_ok or wgrad_ok or s2b_ok or grad_barrier) and bin_dil == 1:
+        conv = make_conv2d_custom(
+            temp_dil,
+            fwd_impl="pair" if pair_ok else "lax",
+            dgrad_impl="pair" if pair_ok else "autodiff",
+            wgrad_impl="pallas" if wgrad_ok else ("s2b" if s2b_ok else "xla"),
+            with_bias=True,
+        )
+        return conv(x, w, b)
+    return conv2d_same(x, w, b, bin_dil, temp_dil)
 
 
 class Spectral2DCNN(nn.Module):
@@ -52,9 +102,18 @@ class Spectral2DCNN(nn.Module):
         use_ln: bool = True,
         eps: float = 1e-7,
         compute_dtype: str = "float32",
+        conv_impl: str = "lax",
+        wgrad_impl: str = "xla",
+        grad_barrier: bool | str = False,
+        stft_impl: str = "auto",
+        act_io_dtype: str = "float32",
         seed: int = 0,
     ):
         super().__init__()
+        assert conv_impl in ("lax", "freq_folded", "pair"), conv_impl
+        assert wgrad_impl in ("xla", "pallas", "s2b"), wgrad_impl
+        assert grad_barrier in (False, True, "none", "all", "l0"), grad_barrier
+        assert act_io_dtype in ("float32", "compute"), act_io_dtype
         chans = list(out_channels) if out_channels else [64] * 5
         self.bin_dil = list(bin_dilations) if bin_dilations else [1] * len(chans)
         self.temp_dil = (
@@ -69,6 +128,12 @@ class Spectral2DCNN(nn.Module):
         self.time_mask_amount = time_mask_amount
         self.use_ln, self.eps = use_ln, eps
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.conv_impl, self.wgrad_impl = conv_impl, wgrad_impl
+        self.grad_barrier = grad_barrier
+        self.stft_impl = stft_impl
+        # activation I/O of LayerNorm and PReLU: float32, or the compute
+        # dtype with float32 statistics
+        self.act_compute = act_io_dtype == "compute"
 
         gen = torch.Generator().manual_seed(seed)
         kf, kt = kernel_size
@@ -80,7 +145,7 @@ class Spectral2DCNN(nn.Module):
             lecun_normal_(conv.weight.data, kf * kt * prev, gen)
             nn.init.zeros_(conv.bias)
             self.convs.append(conv)
-            self.prelus.append(PReLU(c))
+            self.prelus.append(PReLU(c, keep_dtype=self.act_compute))
             prev = c
         self.out = nn.Linear(prev, latent_dim)
         lecun_normal_(self.out.weight.data, prev, gen)
@@ -103,7 +168,8 @@ class Spectral2DCNN(nn.Module):
             spec = features
         else:
             spec = mel_spectrogram(
-                x, int(self.sr), self.n_fft, self.hop_len, self.n_mels
+                x, int(self.sr), self.n_fft, self.hop_len, self.n_mels,
+                impl=self.stft_impl,
             )
         n_frames = spec.shape[-1]
         if mask_draws is not None and (
@@ -118,13 +184,19 @@ class Spectral2DCNN(nn.Module):
 
         h = torch.log(torch.clamp(spec, min=self.eps))  # (B, C, mels, frames)
         cd = self.compute_dtype
-        for conv, prelu, b_dil, t_dil in zip(
-            self.convs, self.prelus, self.bin_dil, self.temp_dil
+        if self.act_compute:
+            h = h.to(cd)
+        for i, (conv, prelu, b_dil, t_dil) in enumerate(
+            zip(self.convs, self.prelus, self.bin_dil, self.temp_dil)
         ):
             if self.use_ln:
-                h = layer_norm_no_affine(h, dims=(2, 3))
-            h = conv2d_same(
-                h.to(cd), conv.weight.to(cd), conv.bias.to(cd), b_dil, t_dil
+                h = layer_norm_no_affine(
+                    h, dims=(2, 3), stat_dtype=torch.float32 if self.act_compute else None
+                )
+            barrier = self.grad_barrier in (True, "all") or (self.grad_barrier == "l0" and i == 0)
+            h = trunk_conv(
+                h.to(cd), conv.weight.to(cd), conv.bias.to(cd), b_dil, t_dil,
+                self.conv_impl, self.wgrad_impl, barrier,
             )
             h = max_pool_floor(h, self.pool_size)
             h = prelu(h)

@@ -1,9 +1,18 @@
 """Mel frontend and SpecAugment (port of `mod_extraction_tpu/ops/stft.py`).
 
 torchaudio `MelSpectrogram(sr, n_fft, hop, n_mels, center=True)` defaults:
-periodic hann window, reflect padding of n_fft//2, power spectrum through
-`torch.fft.rfft` (the JAX package's `impl="rfft"` path), HTK mel scale with
-unnormalised triangular filters, and a float32 projection onto the mels.
+periodic hann window, reflect padding of n_fft//2, power spectrum, HTK mel
+scale with unnormalised triangular filters, and a float32 projection onto
+the mels.
+
+The DFT has the JAX package's implementations (`impl=`): "rfft"
+(`torch.fft.rfft`), "dft" (an explicit real DFT as two float32 matrix
+products, TF32 off, which matches rfft to float tolerance) and "dft_bf16"
+(the same two products with bf16 inputs and float32 accumulation: the
+windowed frames round to 8 bits of mantissa, about 0.5 % relative noise on
+the power spectrum, for the training path only).  "auto" means "rfft" in
+the port: the JAX package picks "dft" on its TPU because the FFT lowers
+badly there, which says nothing about this card.
 """
 
 from __future__ import annotations
@@ -51,6 +60,47 @@ def mel_filterbank(
     return fb.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _dft_basis(n_fft: int) -> tuple:
+    """Real-DFT basis: (n_fft, n_freqs) cos / -sin float32 matrices."""
+    k = np.arange(n_fft // 2 + 1)
+    n = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(n, k) / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def _matmul_f32_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 matrix product with TF32 off, whatever the global switch."""
+    if a.device.type != "cuda":
+        return torch.matmul(a, b)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _power_frames(frames: torch.Tensor, n_fft: int, impl: str) -> torch.Tensor:
+    """|DFT(frames)|^2 over the last axis: (..., n_fft) -> (..., n_freqs)."""
+    if impl in ("auto", "rfft"):
+        spec = torch.fft.rfft(frames, dim=-1)
+        return spec.real**2 + spec.imag**2
+    cos_b, sin_b = (torch.as_tensor(b, device=frames.device) for b in _dft_basis(n_fft))
+    if impl == "dft":
+        re = _matmul_f32_exact(frames, cos_b)
+        im = _matmul_f32_exact(frames, sin_b)
+    elif impl == "dft_bf16":
+        # operands rounded to bf16, exact float32 products, float32 sums:
+        # the numbers of a bf16 product that accumulates in float32
+        fr = frames.to(torch.bfloat16).to(torch.float32)
+        re = _matmul_f32_exact(fr, cos_b.to(torch.bfloat16).to(torch.float32))
+        im = _matmul_f32_exact(fr, sin_b.to(torch.bfloat16).to(torch.float32))
+    else:
+        raise ValueError(f"unknown stft impl {impl!r}")
+    return re * re + im * im
+
+
 def _frame(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Center-padded (reflect) framing: (B, C, T) -> (B, C, n_frames, n_fft)."""
     pad = n_fft // 2
@@ -64,12 +114,12 @@ def mel_spectrogram(
     n_fft: int = 1024,
     hop: int = 256,
     n_mels: int = 256,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Mel power spectrogram: (B, C, T) -> (B, C, n_mels, n_frames), f32."""
     frames = _frame(x.to(torch.float32), n_fft, hop)
     win = torch.as_tensor(hann_window(n_fft), device=x.device)
-    spec = torch.fft.rfft(frames * win, dim=-1)
-    mag2 = spec.real**2 + spec.imag**2  # (B, C, n_frames, n_freqs)
+    mag2 = _power_frames(frames * win, n_fft, impl)  # (B, C, n_frames, n_freqs)
     fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=x.device)
     return torch.matmul(mag2, fb).transpose(-1, -2)
 

@@ -6,17 +6,22 @@ Step semantics (the JAX `_loss_fn`):
 * model input = cat(dry, wet) when use_dry else wet
 * the GT mod_sig is resampled (align_corners=True) to the model's frames
 * optional output smoothing with a center crop of the target
+* optional `stretch_corners` post-processing
 * weighted loss dict, zero-weight metrics still logged
+* `sub_batch_size` microbatching: gradients and metrics averaged over the
+  sub-batches, each with its own SpecAugment draws, then one AdamW step
+* the RandomLFO baseline in place of a model (no parameters, `val_step` only)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from mod_extraction_tpu_torch.losses.losses import WeightedLossDict
-from mod_extraction_tpu_torch.ops.corners import smoothen
+from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
+from mod_extraction_tpu_torch.ops.corners import smoothen, stretch_corners
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
@@ -40,17 +45,35 @@ def adamw(params, lr: float = 1e-4) -> torch.optim.AdamW:
     )
 
 
+def _slice_batch(batch, sl: slice):
+    """The examples `sl` of a (nested) batch dict."""
+    if isinstance(batch, dict):
+        return {k: _slice_batch(v, sl) for k, v in batch.items()}
+    return batch[sl]
+
+
+def _batch_size(batch) -> int:
+    while isinstance(batch, dict):
+        batch = next(iter(batch.values()))
+    return batch.shape[0]
+
+
 class LFOExtractionTask:
-    """Owns the extractor and its optimizer; `train_step` / `val_step`
-    take a batch dict of tensors on the task's device."""
+    """Owns the extractor (or the RandomLFO baseline) and its optimizer;
+    `train_step` / `val_step` take a batch dict of tensors on the task's
+    device."""
 
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: torch.nn.Module | RandomLFO,
         render_cfg: RenderConfig,
         optimizer: Optional[torch.optim.Optimizer] = None,
         use_dry: bool = True,
         model_smooth_n_frames: int = 4,
+        should_stretch: bool = False,
+        max_n_corners: int = 16,
+        stretch_smooth_n_frames: int = 0,
+        sub_batch_size: Optional[int] = None,
         loss_dict: Optional[Dict[str, float]] = None,
         device: str | torch.device = "cuda",
         seed: int = 0,
@@ -58,29 +81,58 @@ class LFOExtractionTask:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_float32_numerics()
-        self.model = model.to(self.device)
+        self.is_random_lfo = isinstance(model, RandomLFO)
+        # the RandomLFO baseline is the only task with no trainable parameters
+        self.has_params = not self.is_random_lfo
+        self.model = model if self.is_random_lfo else model.to(self.device)
         self.render_cfg = render_cfg
-        self.optimizer = optimizer or adamw(self.model.parameters())
+        self.optimizer = optimizer
+        if self.has_params and optimizer is None:
+            self.optimizer = adamw(self.model.parameters())
         self.use_dry = use_dry
         self.model_smooth_n_frames = model_smooth_n_frames
+        self.should_stretch = should_stretch
+        self.max_n_corners = max_n_corners
+        self.stretch_smooth_n_frames = stretch_smooth_n_frames
+        self.sub_batch_size = sub_batch_size
         self.losses = WeightedLossDict(loss_dict)
-        # SpecAugment's four uniforms per step come from this host generator
+        # SpecAugment's four uniforms per (sub-)batch and the RandomLFO
+        # baseline's draws come from this host generator
         self.mask_generator = torch.Generator().manual_seed(seed)
 
+    def _extract(self, dry, wet, fx, mask_draws, lfo_draws=None):
+        if self.is_random_lfo:
+            mod_hat = self.model(
+                self.mask_generator, wet.shape[0],
+                {"shape": fx["shape"], "phase": fx["phase"], "rate_hz": fx["rate_hz"]},
+                draws=lfo_draws, device=self.device,
+            )
+            return mod_hat[:, 0, :]
+        model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
+        mod_hat, _ = self.model(model_in, mask_draws=mask_draws)
+        return mod_hat[:, 0, :]
+
     def _postprocess(self, mod_hat, mod_gt):
-        """smooth + target resampling and cropping."""
+        """smooth + stretch + target resampling and cropping."""
         mod_gt = linear_interpolate_last_dim(mod_gt, mod_hat.shape[-1])
         if self.model_smooth_n_frames > 1:
             mod_hat = smoothen(mod_hat, self.model_smooth_n_frames)
             mod_gt = center_crop_last(mod_gt, mod_hat.shape[-1])
+        if self.should_stretch:
+            mod_hat = stretch_corners(
+                mod_hat,
+                max_n_corners=self.max_n_corners,
+                smooth_n_frames=self.stretch_smooth_n_frames,
+            )
+            if self.stretch_smooth_n_frames > 1:
+                mod_gt = center_crop_last(mod_gt, mod_hat.shape[-1])
         return mod_hat, mod_gt
 
-    def _loss(self, batch, corpus, mask_draws):
+    def _loss(self, batch, corpus, mask_draws, lfo_draws=None):
         with torch.no_grad():
-            dry, wet, mod_frames, _ = render_batch(batch, self.render_cfg, corpus)
-            model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
-        mod_hat, _ = self.model(model_in, mask_draws=mask_draws)
-        mod_hat, mod_gt = self._postprocess(mod_hat[:, 0, :], mod_frames)
+            dry, wet, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
+        mod_hat = self._extract(dry, wet, fx, mask_draws, lfo_draws)
+        mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
         return self.losses(mod_hat, mod_gt)
 
     def train_step(
@@ -89,22 +141,66 @@ class LFOExtractionTask:
         corpus: Optional[torch.Tensor] = None,
         mask_draws: Optional[Sequence[float]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """One AdamW step.  `mask_draws` overrides the four SpecAugment
-        uniforms (tests feed the numbers JAX drew)."""
-        if mask_draws is None:
-            mask_draws = torch.rand(4, generator=self.mask_generator)
+        """One AdamW step.  `mask_draws` overrides the SpecAugment uniforms
+        (tests feed the numbers JAX drew): four numbers, or with
+        `sub_batch_size` one row of four per sub-batch."""
+        assert self.has_params, "the RandomLFO baseline has no parameters to train"
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self._loss(batch, corpus, mask_draws)
-        loss.backward()
+        if self.sub_batch_size is not None:
+            metrics = self._backward_subbatched(batch, corpus, mask_draws)
+        else:
+            if mask_draws is None:
+                mask_draws = torch.rand(4, generator=self.mask_generator)
+            loss, metrics = self._loss(batch, corpus, mask_draws)
+            loss.backward()
         self.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
+    def _backward_subbatched(self, batch, corpus, mask_draws):
+        """Gradients (left in `.grad`) and metrics averaged over the
+        sub-batches, each with its own SpecAugment draws."""
+        sub = self.sub_batch_size
+        b = _batch_size(batch)
+        assert b % sub == 0 and b >= sub
+        n = b // sub
+        if mask_draws is None:
+            mask_draws = torch.rand(n, 4, generator=self.mask_generator)
+        mean = None
+        for i in range(n):
+            sb = _slice_batch(batch, slice(i * sub, (i + 1) * sub))
+            loss, metrics = self._loss(sb, corpus, mask_draws[i])
+            (loss / n).backward()  # .grad accumulates the mean gradient
+            metrics = {k: v.detach() / n for k, v in metrics.items()}
+            mean = metrics if mean is None else {k: mean[k] + v for k, v in metrics.items()}
+        return mean
+
+    def train_steps(
+        self,
+        batches: Sequence[Dict],
+        corpus: Optional[torch.Tensor] = None,
+        mask_draws: Optional[Sequence] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Several optimizer steps in one call: `batches` holds one batch
+        per step; returns the per-step metrics stacked on a leading axis.
+        The JAX task scans the steps in one compiled program; here it is a
+        Python loop over `train_step`."""
+        per_step: List[Dict[str, torch.Tensor]] = [
+            self.train_step(b, corpus, None if mask_draws is None else mask_draws[i])
+            for i, b in enumerate(batches)
+        ]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
     @torch.no_grad()
     def val_step(
-        self, batch: Dict, corpus: Optional[torch.Tensor] = None
+        self,
+        batch: Dict,
+        corpus: Optional[torch.Tensor] = None,
+        lfo_draws: Optional[dict] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Extraction and metrics, without SpecAugment or an update."""
-        self.model.eval()
-        _, metrics = self._loss(batch, corpus, None)
+        """Extraction and metrics, without SpecAugment or an update.
+        `lfo_draws` feeds the RandomLFO baseline's random numbers (tests)."""
+        if self.has_params:
+            self.model.eval()
+        _, metrics = self._loss(batch, corpus, None, lfo_draws)
         return metrics

@@ -1,9 +1,10 @@
 """TBPTT effect-model training: the conditional LSTM on a frozen extractor
-(port of `mod_extraction_tpu/train/tbptt_task.py`, the frozen-extractor and
-ground-truth-LFO conditionings).
+(port of `mod_extraction_tpu/train/tbptt_task.py`, the frozen-extractor,
+RandomLFO and ground-truth-LFO conditionings).
 
 A step renders the batch, extracts its LFO with the frozen extractor (or
-takes the ground-truth one when `lfo_model` is None), smooths it,
+draws it from a `RandomLFO` baseline, or takes the ground-truth one when
+`lfo_model` is None), smooths it,
 stretches its corners and centre-crops the audio to match, weights out the
 examples whose LFO fails the validity rules, and upsamples the LFO to audio
 rate.  `train_step` then runs a warm-up of the LSTM without gradient (K3)
@@ -28,6 +29,7 @@ from mod_extraction_tpu_torch.models.lstm import (
     detach_state,
     lstm_init_state,
 )
+from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.ops.corners import (
     find_valid_mod_sig_mask,
     smoothen,
@@ -50,21 +52,25 @@ class TBPTTEffectModelingTask:
         render_cfg: RenderConfig,
         warmup_n_samples: int = 1024,
         step_n_samples: int = 1024,
-        lfo_model: Optional[torch.nn.Module] = None,
+        lfo_model: Optional[torch.nn.Module | RandomLFO] = None,
         model_smooth_n_frames: int = 8,
         should_stretch: bool = True,
         max_n_corners: int = 16,
         discard_invalid_lfos: bool = True,
         loss_dict: Optional[Dict[str, float]] = None,
         device: str | torch.device = "cuda",
+        seed: int = 0,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_float32_numerics()
         self.effect_model = effect_model.to(self.device)
         self.lfo_model = lfo_model
-        if lfo_model is not None:
+        self.is_random_lfo = isinstance(lfo_model, RandomLFO)
+        if lfo_model is not None and not self.is_random_lfo:
             self.lfo_model = lfo_model.to(self.device).eval().requires_grad_(False)
+        # the RandomLFO conditioning draws from this host generator
+        self.lfo_generator = torch.Generator().manual_seed(seed)
         self.render_cfg = render_cfg
         self.warmup_n_samples = warmup_n_samples
         self.step_n_samples = step_n_samples
@@ -80,7 +86,7 @@ class TBPTTEffectModelingTask:
         """Audio length after the proportional centre crop that follows
         the smoothing of the LFO."""
         t = self.render_cfg.n_samples
-        if self.lfo_model is None:
+        if self.lfo_model is None or self.is_random_lfo:
             n_hat = self.render_cfg.n_mod_frames
         else:
             n_hat = t // 256 + 1  # extractor frames
@@ -94,12 +100,17 @@ class TBPTTEffectModelingTask:
 
     # --------------------------------------------------------------- LFO
     @torch.no_grad()
-    def _extract_mod_sig(self, dry, wet, mod_frames):
+    def _extract_mod_sig(self, dry, wet, mod_frames, fx=None, lfo_draws=None):
         """The LFO (B, F) that conditions the effect model: the frozen
-        extractor's output on cat(dry, wet), or the ground truth without an
-        extractor."""
+        extractor's output on cat(dry, wet), a RandomLFO baseline's draw
+        (anchored to `fx` as it is configured; `lfo_draws` feeds its random
+        numbers in the tests), or the ground truth without an extractor."""
         if self.lfo_model is None:
             return mod_frames
+        if self.is_random_lfo:
+            return self.lfo_model(
+                self.lfo_generator, wet.shape[0], fx, draws=lfo_draws, device=self.device
+            )[:, 0, :]
         return self.lfo_model(torch.cat([dry, wet], dim=1))[0][:, 0, :].to(torch.float32)
 
     def _smooth_stretch(self, mod_hat):
@@ -112,15 +123,17 @@ class TBPTTEffectModelingTask:
         return mod_hat, orig - mod_hat.shape[-1]
 
     @torch.no_grad()
-    def _prepare(self, batch, corpus=None):
+    def _prepare(self, batch, corpus=None, lfo_draws=None):
         """render -> extract -> smooth/stretch -> crop -> validity ->
         upsample.  Returns (dry, wet, mod_sr (B, 1, T'), mod_hat (B, F'),
         weights (B,))."""
-        dry_full, wet_full, mod_frames, _ = render_batch(batch, self.render_cfg, corpus)
+        dry_full, wet_full, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
         t = dry_full.shape[-1]
         if t < self.warmup_n_samples + self.step_n_samples:
             raise ValueError(f"a clip of {t} samples holds no chunk after the warm-up")
-        mod_hat, removed = self._smooth_stretch(self._extract_mod_sig(dry_full, wet_full, mod_frames))
+        mod_hat, removed = self._smooth_stretch(
+            self._extract_mod_sig(dry_full, wet_full, mod_frames, fx, lfo_draws)
+        )
         n_frames = mod_hat.shape[-1]
         n_samples = int((n_frames / (n_frames + removed)) * t)
         dry = center_crop_last(dry_full, n_samples)
@@ -133,14 +146,16 @@ class TBPTTEffectModelingTask:
         return dry, wet, mod_sr, mod_hat, weights
 
     # --------------------------------------------------------------- steps
-    def train_step(self, batch: Dict, corpus: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def train_step(
+        self, batch: Dict, corpus: Optional[torch.Tensor] = None, lfo_draws: Optional[dict] = None
+    ) -> Dict[str, torch.Tensor]:
         """One batch: a no-gradient warm-up, then one AdamW update per
         chunk with the hidden state detached between chunks.  The metrics
         compare the chunks' outputs (each from the weights before its
         update) with the wet audio, warm-up excluded."""
         em = self.effect_model
         em.train()
-        dry, wet, mod_sr, _, weights = self._prepare(batch, corpus)
+        dry, wet, mod_sr, _, weights = self._prepare(batch, corpus, lfo_draws)
         w, s = self.warmup_n_samples, self.step_n_samples
         n_chunks = (dry.shape[-1] - w) // s
         with torch.no_grad():
@@ -162,12 +177,14 @@ class TBPTTEffectModelingTask:
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def val_step(self, batch: Dict, corpus: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def val_step(
+        self, batch: Dict, corpus: Optional[torch.Tensor] = None, lfo_draws: Optional[dict] = None
+    ) -> Dict[str, torch.Tensor]:
         """One forward over the whole cropped clip (the reference's chunk
         loop without updates), warm-up excluded from the metrics."""
         em = self.effect_model
         em.eval()
-        dry, wet, mod_sr, _, weights = self._prepare(batch, corpus)
+        dry, wet, mod_sr, _, weights = self._prepare(batch, corpus, lfo_draws)
         w, s = self.warmup_n_samples, self.step_n_samples
         end = w + (dry.shape[-1] - w) // s * s
         h0 = lstm_init_state(dry.shape[0], em.n_hidden, self.device)

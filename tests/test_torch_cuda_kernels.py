@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 flanger/chorus delay line, K2 phaser cascade,
-K3/K4/K5 LSTM effect model) against their plain PyTorch versions on the
-card.
+K3/K4/K5 LSTM effect model, K6 conv weight gradient) against their plain
+PyTorch versions on the card.
 
 Marked `cuda`; each test skips without a GPU (the kernels have no interpret
 mode).  This file imports torch, numpy and the port only, so it also runs
@@ -11,7 +11,9 @@ on a machine without JAX:
 Tolerances, those of `scripts/tpu_parity_gate.py` (the kernel and the
 plain version round the same float32 recurrence in a different order of
 fused operations): 1e-4 max-abs on outputs and states; every gradient leaf
-within 5e-4 of its largest magnitude."""
+within 5e-4 of its largest magnitude.  K6 sums exact bf16 products in
+float32 in another order than its plain version: 1e-3 of the largest |dW|;
+against the float32 reference its bf16 operands show: 2e-2."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from mod_extraction_tpu_torch.data.synthetic import (
     flanger_max_delay_samples,
     make_interwoven_batch,
 )
-from mod_extraction_tpu_torch.ops import fx_kernels, lstm_kernels
+from mod_extraction_tpu_torch.ops import conv_kernels, fx_kernels, lstm_kernels
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 
 TOL = 1e-4
@@ -162,3 +164,76 @@ def test_lstm_training_pair_matches_autograd_of_plain():
     assert abs(loss_k - loss_p) <= 1e-6 + 1e-4 * abs(loss_p)
     for got, want in zip(g_k, g_p):
         assert (got - want).abs().max().item() <= GRAD_REL * want.abs().max().item()
+
+
+# (B, Ci, Co, F, T, kf, kt, dil): ragged T, channel counts below and above
+# one 64-channel tile, every trunk dilation, other odd kernels
+WGRAD_CASES = [
+    (2, 16, 8, 6, 57, 5, 13, 4),
+    (2, 64, 64, 9, 345, 5, 13, 1),
+    (3, 64, 64, 8, 345, 5, 13, 16),
+    (1, 8, 8, 4, 131, 5, 13, 2),
+    (2, 72, 80, 5, 70, 5, 13, 8),
+    (2, 16, 16, 7, 40, 3, 7, 1),
+    (2, 8, 16, 5, 33, 1, 5, 3),
+    (1, 16, 8, 9, 50, 7, 3, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,co,f,t,kf,kt,dil", WGRAD_CASES)
+def test_conv_wgrad_kernel_matches_plain(b, ci, co, f, t, kf, kt, dil):
+    """K6 against its plain version and the float32 reference, bit-identical
+    from launch to launch (fixed-order two-pass sum), one count per call."""
+    _need_cuda()
+    rng = np.random.default_rng(b * 1000 + t)
+    x = torch.as_tensor((0.3 * rng.standard_normal((b, ci, f, t))).astype(np.float32), device="cuda")
+    dy = torch.as_tensor((0.3 * rng.standard_normal((b, co, f, t))).astype(np.float32), device="cuda")
+    conv_kernels.reset_launch_counts()
+    got = conv_kernels.conv2d_wgrad_tapcat(x, dy, kf, kt, dil)
+    again = conv_kernels.conv2d_wgrad_tapcat(x.to(torch.bfloat16), dy.to(torch.bfloat16), kf, kt, dil)
+    assert conv_kernels.LAUNCHES["conv_wgrad"] == 2
+    assert tuple(got.shape) == (co, ci, kf, kt) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    plain = conv_kernels.conv2d_wgrad_plain(x, dy, kf, kt, dil)
+    ref = conv_kernels.conv2d_wgrad_reference(x, dy, kf, kt, dil)
+    scale = ref.abs().max().item()
+    assert (got - plain).abs().max().item() <= 1e-3 * scale
+    assert (got - ref).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_conv_wgrad_kernel_refuses_what_it_does_not_take():
+    _need_cuda()
+    x = torch.zeros(1, 12, 4, 20, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv_kernels.conv2d_wgrad_tapcat(x, x, 5, 13, 1)
+    x = torch.zeros(1, 8, 4, 20, device="cuda")
+    with pytest.raises(ValueError, match="exceeds"):
+        conv_kernels.conv2d_wgrad_tapcat(x, x, 9, 13, 1)
+    with pytest.raises(ValueError, match="odd"):
+        conv_kernels.conv2d_wgrad_tapcat(x, x, 4, 13, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgrad", ["pallas", "xla", "s2b"])
+def test_custom_conv_on_card_matches_cpu(wgrad):
+    """The conv with a chosen backward, bf16 on the card, against the same
+    function in float32 on the CPU from the same bf16-exact inputs: y and
+    every gradient within 2e-2 of the largest magnitude (bf16 outputs)."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+
+    def exact(shape, s=1.0):
+        return torch.as_tensor((s * rng.standard_normal(shape)).astype(np.float32)).bfloat16().float()
+
+    x, w, b, g = exact((2, 8, 8, 40)), exact((16, 8, 5, 13), 0.1), exact((16,)), exact((2, 16, 8, 40))
+    out = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        args = [a.to(dev, dt).requires_grad_(True) for a in (x, w, b)]
+        conv = conv_kernels.make_conv2d_custom(2, wgrad_impl=wgrad, with_bias=True)
+        y = conv(*args)
+        y.backward(g.to(dev, dt))
+        out[dev] = [y.detach().float().cpu()] + [a.grad.float().cpu() for a in args]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()

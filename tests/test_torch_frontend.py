@@ -81,3 +81,31 @@ def test_weighted_losses_match(rng):
         assert set(mt) == set(mj) == {"l1", "fdl1", "sdl1", "mse", "loss"}
         for k in mj:
             np.testing.assert_allclose(float(mt[k]), float(mj[k]), rtol=1e-5)
+
+
+# --- the matrix-product DFT frontends --------------------------------------
+# "dft" is two float32 products (TF32 off): relative 1e-4 of each example's
+# peak against the JAX "dft" path and against the port's own rfft path.
+# "dft_bf16" rounds the windowed frames and the basis to bf16 (8 bits of
+# mantissa): relative 2e-2 against the JAX "dft_bf16" path, and the same
+# against the exact spectrum.
+
+
+@pytest.mark.parametrize("impl,tol", [("dft", 1e-4), ("dft_bf16", 2e-2)])
+def test_dft_frontends_match_jax(rng, impl, tol):
+    x = rng.uniform(-0.8, 0.8, (2, 2, 6000)).astype(np.float32)
+    ref = np.asarray(j_mel(jnp.asarray(x), 44100, 1024, 256, 64, impl=impl))
+    out = mel_spectrogram(torch.as_tensor(x), 44100, 1024, 256, 64, impl=impl).numpy()
+    exact = mel_spectrogram(torch.as_tensor(x), 44100, 1024, 256, 64, impl="rfft").numpy()
+    assert out.shape == ref.shape
+    scale = ref.max(axis=(2, 3), keepdims=True)
+    np.testing.assert_allclose(out / scale, ref / scale, atol=tol)
+    np.testing.assert_allclose(out / scale, exact / scale, atol=tol)
+
+
+def test_auto_frontend_is_rfft_and_unknown_is_refused(rng):
+    x = torch.as_tensor(rng.uniform(-0.8, 0.8, (1, 1, 3000)).astype(np.float32))
+    assert torch.equal(mel_spectrogram(x, impl="auto"), mel_spectrogram(x, impl="rfft"))
+    assert torch.equal(mel_spectrogram(x), mel_spectrogram(x, impl="rfft"))
+    with pytest.raises(ValueError):
+        mel_spectrogram(x, impl="stft")

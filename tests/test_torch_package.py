@@ -17,7 +17,7 @@ from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_interwo
 from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
 from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
-from mod_extraction_tpu_torch.ops import fx_kernels, lstm_kernels
+from mod_extraction_tpu_torch.ops import conv_kernels, fx_kernels, lstm_kernels
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
 from mod_extraction_tpu_torch.train.render import RenderConfig
 from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
@@ -65,6 +65,8 @@ def test_package_imports_with_jax_blocked():
         )
     ]
     assert "mod_extraction_tpu_torch.train.lfo_task" in mods
+    for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo"):
+        assert f"mod_extraction_tpu_torch.{new}" in mods
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
@@ -126,3 +128,43 @@ def test_lstm_kernel_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(RuntimeError, match="meta"):
         lstm_kernels.lstm_backward(seq, hs, hs, h, h, *w[:3], hs, h, h)
     assert set(lstm_kernels.LAUNCHES.values()) == {0}
+
+
+def test_conv_wgrad_wrapper_does_not_fall_back_off_the_cpu(monkeypatch):
+    """K6's wrapper answers only a CPU tensor with the plain version: a
+    tensor elsewhere raises, and a CUDA tensor goes to the kernel's build
+    (stubbed here to show the path taken) and never to the plain version."""
+    x = torch.empty(2, 8, 4, 20, device="meta")
+    conv_kernels.reset_launch_counts()
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version was taken for a non-CPU tensor")
+
+    monkeypatch.setattr(conv_kernels, "conv2d_wgrad_plain", no_plain)
+    with pytest.raises(RuntimeError, match="meta"):
+        conv_kernels.conv2d_wgrad_tapcat(x, x, 5, 13, 1)
+
+    class FakeCuda:
+        """Stands for a tensor on a card: only what the wrapper reads before
+        it loads the kernel."""
+        device = torch.device("cuda", 0)
+        ndim, shape = 4, (2, 8, 4, 20)
+
+    def no_card():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(conv_kernels, "_load", no_card)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        conv_kernels.conv2d_wgrad_tapcat(FakeCuda(), FakeCuda(), 5, 13, 1)
+    assert conv_kernels.LAUNCHES == {"conv_wgrad": 0}
+
+
+def test_model_with_kernel_wgrad_loads_the_shipped_weights():
+    """Every compute-path option leaves the parameter names alone, so the
+    shipped .npz loads in the hand-written weight-gradient configuration."""
+    model = load_spectral_2dcnn(
+        R7, device="cpu", in_ch=2, out_channels=(64,) * 6, temp_dilations=(1, 1, 2, 4, 8, 16),
+        pool_size=(2, 1), wgrad_impl="pallas", conv_impl="pair", grad_barrier="l0",
+        act_io_dtype="compute", stft_impl="dft",
+    )
+    assert model.wgrad_impl == "pallas" and len(model.convs) == 6

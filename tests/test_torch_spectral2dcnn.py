@@ -126,3 +126,94 @@ def test_conv2d_same_matches_jax_with_gradients(rng, kernel, bin_dil, temp_dil):
     ):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+
+
+# --- compute-path options: the small model against the JAX module ---------
+# float32, the same converted weights.  Tolerances: output 1e-5 max-abs and
+# latent 1e-4 of its largest magnitude for options that only reorder float32
+# sums; "dft_bf16" rounds the windowed frames to bf16 (about 0.5 % noise on
+# the power spectrum), and a bf16 trunk ("compute" activation I/O) rounds
+# every layer: 2e-2 on the sigmoid output, both sides rounding at slightly
+# different places.
+
+SMALL = dict(
+    in_ch=2, n_samples=8192, sr=44100, n_fft=512, hop_len=256, n_mels=32,
+    kernel_size=(5, 13), out_channels=(8, 8, 8), temp_dilations=(1, 2, 4), pool_size=(2, 1),
+)
+OPTIONS = [
+    dict(conv_impl="freq_folded"),
+    dict(conv_impl="pair"),
+    dict(wgrad_impl="pallas"),
+    dict(wgrad_impl="s2b"),
+    dict(grad_barrier=True),
+    dict(grad_barrier="l0"),
+    dict(conv_impl="pair", wgrad_impl="pallas", grad_barrier="all"),
+    dict(stft_impl="dft"),
+    dict(stft_impl="rfft"),
+    dict(stft_impl="dft_bf16"),
+    dict(act_io_dtype="compute"),
+    dict(act_io_dtype="compute", compute_dtype="bfloat16"),
+]
+
+
+def _small_pair(opts):
+    x = (0.3 * np.random.default_rng(3).standard_normal((2, 2, 8192))).astype(np.float32)
+    j_model = JSpectral2DCNN(**SMALL, **opts)
+    params = JSpectral2DCNN(**SMALL).init(jax.random.PRNGKey(0), jnp.asarray(x))
+    t_model = Spectral2DCNN(**SMALL, **opts)
+    t_model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params)))
+    return x, j_model, params, t_model
+
+
+@pytest.mark.parametrize("opts", OPTIONS, ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
+def test_option_forward_matches_jax(opts):
+    x, j_model, params, t_model = _small_pair(opts)
+    out_j, lat_j = j_model.apply(params, jnp.asarray(x))
+    with torch.no_grad():
+        out_t, lat_t = t_model(torch.as_tensor(x))
+    loose = opts.get("stft_impl") == "dft_bf16" or opts.get("compute_dtype") == "bfloat16"
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=2e-2 if loose else 1e-5)
+    if not loose:
+        lat_j = np.asarray(lat_j)
+        np.testing.assert_allclose(lat_t.numpy(), lat_j, atol=1e-4 * np.abs(lat_j).max())
+    # the options never change a parameter's name or shape
+    assert t_model.state_dict().keys() == Spectral2DCNN(**SMALL).state_dict().keys()
+
+
+@pytest.mark.parametrize(
+    "opts",
+    [dict(conv_impl="pair"), dict(wgrad_impl="s2b"), dict(wgrad_impl="pallas"),
+     dict(conv_impl="freq_folded"), dict(grad_barrier="all"), dict(act_io_dtype="compute")],
+    ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()),
+)
+def test_option_gradients_match_jax(monkeypatch, opts):
+    """Parameter gradients of sum(out^2) in each configuration against the
+    JAX module in the same configuration.  1e-4 of each leaf's largest
+    magnitude (float32, reordered sums); with `wgrad_impl="pallas"` the conv
+    weights of the 8-channel layers carry K6's bf16 rounding of x and dy on
+    both sides (the TPU kernel runs in interpret mode, substituted on the
+    name the JAX model imported): 2e-2, the kernel's own bound."""
+    import functools
+
+    import mod_extraction_tpu.models.spectral_2dcnn as jmod
+    from mod_extraction_tpu.ops.pallas_conv import make_conv2d_custom as j_make
+
+    monkeypatch.setattr(jmod, "make_conv2d_custom", functools.partial(j_make, interpret=True))
+    x, j_model, params, t_model = _small_pair(opts)
+    grads_j = jax.grad(lambda p: jnp.sum(j_model.apply(p, jnp.asarray(x))[0] ** 2))(params)
+    g_j = flax_to_state_dict(jax.tree.map(np.asarray, grads_j))
+    (t_model(torch.as_tensor(x))[0] ** 2).sum().backward()
+    for k, p in t_model.named_parameters():
+        want = g_j[k].numpy()
+        kernel_leaf = opts.get("wgrad_impl") == "pallas" and k in ("convs.1.weight", "convs.2.weight")
+        tol = 2e-2 if kernel_leaf else 1e-4
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=tol * np.abs(want).max(), err_msg=k)
+
+
+def test_unknown_options_are_refused():
+    for kw in (dict(conv_impl="cudnn"), dict(wgrad_impl="triton"), dict(act_io_dtype="bf16")):
+        with pytest.raises(AssertionError):
+            Spectral2DCNN(**SMALL, **kw)
+    with pytest.raises(ValueError):
+        with torch.no_grad():
+            Spectral2DCNN(**SMALL, stft_impl="fft")(torch.zeros(1, 2, 8192))

@@ -124,3 +124,61 @@ def test_shipped_config_geometry():
     gt = TBPTTEffectModelingTask(LSTMEffectModel(n_hidden=64), RenderConfig(**render), device="cpu", **kw)
     j_gt = JTask(effect_model=JLSTM(n_hidden=64), render_cfg=JRenderConfig(**render), **kw)
     assert gt.updates_per_batch == j_gt.updates_per_batch
+
+
+@pytest.mark.parametrize("anchored", [False, True], ids=["free", "anchored"])
+def test_random_lfo_conditioning_matches_jax(anchored):
+    """A RandomLFO baseline as `lfo_model`: the conditioning LFO is drawn,
+    not extracted.  The JAX task hands its step key straight to the
+    baseline, which splits it in three (phase, frequency, shape); the port
+    is fed those draws.  The prepared LFO 1e-5, weights exact, `val_step`
+    metrics rtol 1e-4, the LSTM after a `train_step` 2e-5, as above."""
+    from mod_extraction_tpu.models.random_lfo import RandomLFO as JRandomLFO
+    from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
+
+    n_frames = RenderConfig(**RENDER).n_mod_frames
+    shapes = ("cos", "tri", "rect_cos", "inv_rect_cos")
+    cfg = dict(n_samples=n_frames, sr=n_frames / (N / SR), use_shape_gt=anchored,
+               use_phase_gt=anchored, use_freq_gt=anchored, shapes=shapes,
+               freq_min=0.5, freq_max=3.0, phase_error=0.25, freq_error=0.1)
+    j_task = JTask(
+        effect_model=JLSTM(in_ch=1, out_ch=1, n_hidden=HID, latent_dim=1),
+        render_cfg=JRenderConfig(**RENDER), lfo_model=JRandomLFO(**cfg),
+        optimizer=optax.adamw(1e-4, b1=0.8, b2=0.99), lstm_impl="scan",
+        discard_invalid_lfos=True, **TASK,
+    )
+    state = j_task.init_state(jax.random.PRNGKey(1))
+    em = LSTMEffectModel(in_ch=1, out_ch=1, n_hidden=HID, latent_dim=1)
+    em.load_state_dict(flax_lstm_to_state_dict(jax.tree.map(np.asarray, state.params)))
+    t_task = TBPTTEffectModelingTask(
+        em, RenderConfig(**RENDER), lfo_model=RandomLFO(**cfg), device="cpu",
+        discard_invalid_lfos=True, **TASK,
+    )
+    assert t_task.is_random_lfo and t_task.updates_per_batch == j_task.updates_per_batch
+    assert t_task._cropped_n_samples() == j_task._cropped_n_samples()
+
+    np_batch = make_synthetic_batch(3, 6, N, SR, "flanger")
+    j_batch = jax.tree.map(jnp.asarray, np_batch)
+    t_batch = batch_to_torch(np_batch, "cpu")
+    key = jax.random.PRNGKey(7)
+    k_phase, k_freq, k_shape = jax.random.split(key, 3)
+    draws = {
+        "phase": np.array(jax.random.uniform(k_phase, (6,))),
+        "freq": np.array(jax.random.uniform(k_freq, (6,))),
+        "shape": np.array(jax.random.randint(k_shape, (6,), 0, len(shapes))),
+    }
+    prep_t = t_task._prepare(t_batch, lfo_draws=draws)
+    prep_j = j_task._prepare(j_batch, key)
+    np.testing.assert_allclose(prep_t[3].numpy(), np.asarray(prep_j[3]), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(prep_t[4].numpy(), np.asarray(prep_j[5]))
+    assert float(prep_t[4].sum()) > 0
+
+    _assert_metrics_close(t_task.val_step(t_batch, lfo_draws=draws), j_task.val_step(state.params, j_batch, key))
+    new_state, mj = j_task.train_step(state, j_batch, key)
+    _assert_metrics_close(t_task.train_step(t_batch, lfo_draws=draws), mj)
+    ref = flax_lstm_to_state_dict(jax.tree.map(np.asarray, new_state.params))
+    for k, v in t_task.effect_model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=0, atol=2e-5, err_msg=k)
+    # without fed draws the task's own generator gives another LFO each call
+    a, b = t_task._prepare(t_batch)[3], t_task._prepare(t_batch)[3]
+    assert not np.array_equal(a.numpy(), b.numpy())
