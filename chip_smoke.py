@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +116,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_median(fn, reps: int = 20, batches: int = 5) -> float:
+    """Median over `batches` of the mean ms of `reps` calls, after a warm-up
+    call: a library call's first batches read high on some runs."""
+    fn()
+    return float(np.median([cuda_ms(fn, reps) for _ in range(batches)]))
+
+
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """Device ms per call of `fn`, by kernel name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = kernel_short_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def kernel_short_name(key: str) -> str:
+    """`lstm_bwd_walk_fast_kernel<64>` from the profiler's full signature."""
+    m = re.search(r"(\w+)(<[^>(]*>)?\(", key)
+    return m.group(1) + (m.group(2) or "") if m else key[:60]
+
+
+def sm_clock_mhz(fn, launches: int = 1500) -> float:
+    """The SM clock `nvidia-smi` reports while the card works through a queue
+    of `fn` launches."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    torch.cuda.synchronize()
+    return float(out[0])
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a - b).abs().max().item()
 
@@ -160,9 +205,12 @@ def profile_train_step(task, batch, label: str, top: int = 15) -> None:
         task.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and copies only: a range the optimizer opens ("Optimizer.step#...")
+    # is reported with the device time of the kernels inside it, a second time
     events = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not e.key.startswith("Optimizer.")
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[profile {label} train_step] wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
@@ -517,18 +565,24 @@ def lstm_inputs(rng, b, t, hid, in_dim=2):
 
 
 def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
-    """K3, K4 and K5 against their plain versions on the same inputs, and
-    the K4/K5 training pair against autograd through the plain forward."""
-    ref = lk.lstm_forward_plain(**a, save_states=True)
+    """K3, K4 (its saved gate activations too) and K5 against their plain
+    versions on the same inputs, two K5 launches against each other, and the
+    K4/K5 training pair against autograd through the plain forward."""
+    ref = lk.lstm_forward_plain(**a, save_states=True)  # y, hn, cn, hs, cs, gates
     err3 = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(**a), ref[:3]))
-    err4 = max(max_abs(x, y) for x, y in zip(lk.lstm_train_forward(**a), ref))
+    out4 = lk.lstm_train_forward(**a)
+    err4 = max(max_abs(x, y) for x, y in zip(out4[:5], ref[:5]))
+    err_gates = max_abs(out4[5], ref[5])
     b, _, t = a["seq"].shape
     hid = a["w_hh"].shape[0]
+    label = f"{label}, {'fast' if lk.fast_path(hid) else 'generic'} kernels"
     gen = torch.Generator(device="cuda").manual_seed(dh_seed)
     dh_in = torch.randn(b, t, hid, device="cuda", generator=gen)
     dhn, dcn = (torch.randn(b, hid, device="cuda", generator=gen) for _ in range(2))
-    bargs = (a["seq"], ref[3], ref[4], a["h0"], a["c0"], a["w_ih"], a["w_hh"], a["b"], dh_in, dhn, dcn)
-    err5 = max(rel_err(x, y) for x, y in zip(lk.lstm_backward(*bargs), lk.lstm_backward_plain(*bargs)))
+    bargs = (a["seq"], *ref[3:6], a["h0"], a["c0"], a["w_ih"], a["w_hh"], dh_in, dhn, dcn)
+    got5, again5 = lk.lstm_backward(*bargs), lk.lstm_backward(*bargs)
+    err5 = max(rel_err(x, y) for x, y in zip(got5, lk.lstm_backward_plain(*bargs)))
+    same5 = all(torch.equal(x, y) for x, y in zip(got5, again5))
 
     x, lat = a["seq"][:, 1:].contiguous(), a["seq"][:, :1].contiguous()
     tgt = torch.randn(b, 1, t, device="cuda", generator=gen)
@@ -548,38 +602,54 @@ def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
     loss_k, g_k = loss_and_grads(lk.lstm_effect_model_train)
     loss_p, g_p = loss_and_grads(plain)
     err_g = max(rel_err(x, y) for x, y in zip(g_k, g_p))
-    print(f"[{label}] K3 max_abs={err3:.3e} K4 max_abs={err4:.3e} K5 max_rel={err5:.3e} "
+    print(f"[{label}] K3 max_abs={err3:.3e} K4 max_abs={err4:.3e} K4 saved gates max_abs={err_gates:.3e} "
+          f"K5 max_rel={err5:.3e} K5 relaunch bit-identical: {same5} "
           f"loss {loss_k:.8f}/{loss_p:.8f} grads max_rel={err_g:.3e}")
     if not (err3 <= KERNEL_TOL and err4 <= KERNEL_TOL):
         fail(f"{label}: K3/K4 disagree with their plain versions: {err3}, {err4}")
+    if not err_gates <= KERNEL_TOL:
+        fail(f"{label}: K4's saved gate activations disagree with the plain version's: {err_gates}")
     if not err5 <= GRAD_REL:
         fail(f"{label}: K5 disagrees with its plain version: {err5}")
+    if not same5:
+        fail(f"{label}: two K5 launches on the same inputs differ")
     if not abs(loss_k - loss_p) <= LOSS_ATOL + LOSS_RTOL * abs(loss_p):
         fail(f"{label}: training loss {loss_k} vs {loss_p}")
     if not err_g <= GRAD_REL:
         fail(f"{label}: training gradients disagree with autograd of the plain version: {err_g}")
 
 
+def long_walk_drift(lk, k3_args):
+    """K3's final (hn, cn) and its y, batch row 0, against the plain version
+    walked in float64 on the CPU: (state max-abs, y max-abs)."""
+    y_card, hn_card, cn_card = lk.lstm_forward(*k3_args)
+    row64 = [a[:1].double().cpu() for a in k3_args[:4]] + [a.double().cpu() for a in k3_args[4:]]
+    y64, hn64, cn64 = lk.lstm_forward_plain(*row64)
+    state = max(max_abs(hn_card[:1].double().cpu(), hn64), max_abs(cn_card[:1].double().cpu(), cn64))
+    return state, max_abs(y_card[:1].double().cpu(), y64)
+
+
 def lstm_ops_bytes(b, t, hid, in_dim, out_ch, backward=False, save_states=False):
     """(float32 operations, bytes) one K3/K4/K5 launch needs: each input
-    read once, each output written once; transcendental functions count as
-    one operation."""
+    read once, each output written once (K4's saved states and gate
+    activations are its outputs and K5's inputs; K5's gate cotangents are
+    scratch and not counted); transcendental functions count as one
+    operation."""
     g4 = 4 * hid
     w_floats = in_dim * g4 + hid * g4 + g4
     if not backward:
         ops = b * t * (2 * g4 * (hid + in_dim) + g4 + g4 + 5 * hid + 2 * hid * out_ch + 3 * out_ch)
         floats = b * t * (in_dim + 2 * out_ch) + 4 * b * hid + w_floats + hid * out_ch + out_ch
         if save_states:
-            floats += 2 * b * t * hid
+            floats += 2 * b * t * hid + b * t * g4
         return ops, 4 * floats
     ops = b * t * (
-        2 * g4 * (hid + in_dim) + 2 * g4  # gates recomputed
-        + 20 * hid  # cell backward and gate cotangents
+        20 * hid  # cell backward and gate cotangents
         + 2 * g4 * hid  # recurrent cotangent
         + 2 * g4 * (hid + in_dim + 1)  # dW_hh, dW_ih, db
         + 2 * g4 * in_dim  # dseq
     )
-    floats = 2 * b * in_dim * t + 3 * b * t * hid + 6 * b * hid + 2 * w_floats
+    floats = 2 * b * in_dim * t + 3 * b * t * hid + b * t * g4 + 6 * b * hid + 2 * w_floats
     return ops, 4 * floats
 
 
@@ -591,10 +661,15 @@ def run_stage2(fxk, lk, rng) -> list:
     from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
     from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
-    # -- kernels against their plain versions: small shapes at H 64 and 160,
-    #    then the main path's shapes with the shipped weights
-    for hid in (64, 160):
+    # -- kernels against their plain versions: the register-resident kernels
+    #    (H 64, 16) and the generic ones (H 160, 48) at a T ragged against
+    #    both chunk sizes and at a single step, then the main path's shapes
+    #    with the shipped weights
+    for hid in (64, 160, 16, 48):
         check_lstm_kernels(lk, lstm_inputs(rng, 5, 300, hid), hid, f"LSTM B=5 T=300 H={hid}")
+        check_lstm_kernels(lk, lstm_inputs(rng, 1, 1, hid), hid + 1, f"LSTM B=1 T=1 H={hid}")
+    if not (lk.fast_path(64) and lk.fast_path(16) and not lk.fast_path(160) and not lk.fast_path(48)):
+        fail("the small-shape checks did not cover both kernel paths")
     em_w = load_lstm_effect_model(str(LSTM64), device="cuda")
     a = lstm_inputs(rng, BATCH, TBPTT_CHUNK, 64)
     a.update(w_ih=em_w.w_ih.detach(), w_hh=em_w.w_hh.detach(), b=em_w.b_gates.detach(),
@@ -753,12 +828,12 @@ def run_stage2(fxk, lk, rng) -> list:
     _, hw, cw = lk.lstm_forward(*k3_args)
     sl = slice(TBPTT_CHUNK, 2 * TBPTT_CHUNK)
     k4_args = (seq_full[:, :, sl].contiguous(), dry[:, :, sl].contiguous(), hw, cw, *w)
-    y, _, _, hs, cs = lk.lstm_train_forward(*k4_args)
+    y, _, _, hs, cs, gates = lk.lstm_train_forward(*k4_args)
     dz = torch.sign(y - wet[:, :, sl]) * weights[:, None, None] / (weights.sum().clamp(min=1e-8) * TBPTT_CHUNK)
     dz = dz * (1 - y * y)
     dh_in = torch.einsum("ho,bot->bth", w[3], dz).contiguous()
     zeros = torch.zeros_like(hw)
-    k5_args = (k4_args[0], hs, cs, hw, cw, *w[:3], dh_in, zeros, zeros)
+    k5_args = (k4_args[0], hs, cs, gates, hw, cw, *w[:2], dh_in, zeros, zeros)
 
     lib_lstm = torch.nn.LSTM(2, 64).to("cuda")
     with torch.no_grad():
@@ -781,7 +856,7 @@ def run_stage2(fxk, lk, rng) -> list:
         out_, _ = lib_lstm(seq_tbc_grad, lib_state)
         out_.sum().backward()
 
-    rows = []
+    rows, times = [], {}
     specs = [
         ("lstm_forward", "lstm_effect_model", lk.lstm_forward, lambda: lk.lstm_forward_plain(*k3_args),
          k3_args, "mod_extraction_tpu/ops/pallas_lstm.py:52", lambda: lib_fwd(warm_tbc),
@@ -797,7 +872,7 @@ def run_stage2(fxk, lk, rng) -> list:
     ]
     for key, name, kern, plain, args, replaces, lib_fn, (n_ops, n_bytes) in specs:
         got = kern(*args)
-        ms = cuda_ms(lambda: kern(*args), 20)
+        ms = cuda_ms_median(lambda: kern(*args))
         ref_out = []
         plain_ms = cuda_ms(lambda: ref_out.append(plain()), 1)
         if key == "lstm_backward":
@@ -806,19 +881,40 @@ def run_stage2(fxk, lk, rng) -> list:
         else:
             err = max(max_abs(x, y_) for x, y_ in zip(got, ref_out[0]))
             tol = KERNEL_TOL
-        lib_fn()
-        library_ms = cuda_ms(lib_fn, 20)
+        library_ms = cuda_ms_median(lib_fn)
+        times[key] = (ms, library_ms)
         t_len = args[0].shape[-1]
         print(f"[{name} B={BATCH} T={t_len} H=64] err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f} "
-              f"library_ms={library_ms:.3f} (torch.nn.LSTM, no fc head)")
+              f"library_ms={library_ms:.3f} (torch.nn.LSTM, no fc head; medians of 5 x 20 calls)")
         if not err <= tol:
             fail(f"{name} at the main-path shapes disagrees with its plain version: {err}")
         rows.append(kernel_row(
             name, "mod_extraction_tpu_torch/csrc/lstm.cu", replaces, total[key], err, ms,
             plain_ms, n_bytes, n_ops, library_ms,
         ))
+    # the pair a training user pays for: the library's forward + backward call
+    # holds its own forward, so it stands beside K4 + K5
+    pair_ms = times["lstm_train_forward"][0] + times["lstm_backward"][0]
+    print(f"[K4 + K5 B={BATCH} T={TBPTT_CHUNK} H=64] ms={pair_ms:.3f} beside torch.nn.LSTM forward + backward "
+          f"{times['lstm_backward'][1]:.3f}; K3 {times['lstm_forward'][0]:.3f} and K4 "
+          f"{times['lstm_train_forward'][0]:.3f} beside its forward {times['lstm_forward'][1]:.3f} / "
+          f"{times['lstm_train_forward'][1]:.3f}")
+    # cycles a step of the two walks: kernel time / T x the SM clock under load
+    by_kernel = device_ms_by_kernel(lambda: lk.lstm_backward(*k5_args), 10)
+    walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_walk" in k_)
+    mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
+    print("[K5 by kernel, ms a launch] " + "  ".join(
+        f"{k_}={v:.4f}" for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    print(f"[cycles a step at {mhz:.0f} MHz (nvidia-smi clocks.sm under load)] "
+          f"K4 walk {times['lstm_train_forward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}  "
+          f"K5 walk {walk_ms / TBPTT_CHUNK * mhz * 1e3:.0f} (walk kernel {walk_ms:.4f} ms)")
+    if not walk_ms > 0:
+        fail(f"the profiler saw no K5 walk kernel: {sorted(by_kernel)}")
+
     # K3 over the whole val_step clip: timed at full length, held against
-    # the plain version on its first 4096 steps (the plain loop is slow)
+    # the plain version on its first 4096 steps (the plain loop is slow), and
+    # its final state against a float64 plain walk of one batch row on the
+    # CPU, where drift over the long walk would show
     k3_val = (seq_full, dry[:, :, :end].contiguous(), h0, c0, *w)
     val_ms = cuda_ms(lambda: lk.lstm_forward(*k3_val), 3)
     n_cmp = 4096
@@ -827,6 +923,9 @@ def run_stage2(fxk, lk, rng) -> list:
         lk.lstm_forward(*head, *k3_val[2:]), lk.lstm_forward_plain(*head, *k3_val[2:])))
     if not err <= KERNEL_TOL:
         fail(f"K3 on the val_step clip's first {n_cmp} steps disagrees with its plain version: {err}")
+    drift, drift_y = long_walk_drift(lk, k3_val)
+    if not (drift <= KERNEL_TOL and drift_y <= KERNEL_TOL):
+        fail(f"K3 after {end} steps is {drift} (state) / {drift_y} (y) from a float64 walk")
     try:
         full_tbc = seq_full.permute(2, 0, 1).contiguous()
         lib_fwd(full_tbc)
@@ -835,8 +934,9 @@ def run_stage2(fxk, lk, rng) -> list:
         lib_val = f"refused ({str(e).splitlines()[0][:80]})"
     val_ops, val_bytes = lstm_ops_bytes(BATCH, end, 64, 2, 1)
     print(f"[lstm_effect_model val_step B={BATCH} T={end} H=64] ms={val_ms:.3f} "
-          f"err(first {n_cmp} steps)={err:.3e} bound_ms={max(val_ops / F32_OPS_S, val_bytes / HBM_BYTES_S) * 1e3:.4f} "
-          f"library_ms={lib_val}")
+          f"err(first {n_cmp} steps)={err:.3e} (hn, cn) after {end} steps vs float64 CPU walk, row 0: "
+          f"{drift:.3e}, y over the clip: {drift_y:.3e} "
+          f"bound_ms={max(val_ops / F32_OPS_S, val_bytes / HBM_BYTES_S) * 1e3:.4f} library_ms={lib_val}")
 
     # -- where one full-width TBPTT train step spends the card's time
     profile_train_step(task, train_batches[1], "stage 2")

@@ -1,5 +1,6 @@
 """K3 (no-gradient LSTM effect-model forward), K4 (training forward that
-saves every step's h and c) and K5 (reverse-time backward): wrappers around
+saves every step's h, c and gate activations) and K5 (reverse-time backward
+from those saved tensors): wrappers around
 the hand-written CUDA kernels in `csrc/lstm.cu`, their plain PyTorch
 versions, launch counters, and the autograd function that pairs K4 with K5.
 
@@ -12,7 +13,15 @@ outside the kernel.
 Arguments keep the JAX parameter layout: seq (B, in_dim, T) = [latent; x]
 on channels, x residual (B, out_ch, T), h0 / c0 (B, H), w_ih (in_dim, 4H),
 w_hh (H, 4H), b (4H,), fc_k (H, out_ch), fc_b (out_ch,), gate order
-(i, f, g, o).  Saved states hs / cs are (B, T, H).
+(i, f, g, o).  Saved states hs / cs are (B, T, H); the saved gate
+activations are (B, T, 4H): sigmoid(i), sigmoid(f), tanh(g), sigmoid(o).
+K5 reads them and never recomputes a gate, so it takes neither the bias
+nor the pre-activations.
+
+On the card the widths H 16, 32 and 64 take the kernels whose recurrent
+weights stay in registers; every other H <= 256 the generic ones
+(`csrc/lstm.cu` says how they differ).  `ALLOW_FAST = False` keeps every
+width on the generic kernels, for comparisons.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
@@ -32,7 +41,11 @@ from mod_extraction_tpu_torch.ops import cuda_build
 #: Kernel launches per wrapper since the last `reset_launch_counts()`.
 LAUNCHES = {"lstm_forward": 0, "lstm_train_forward": 0, "lstm_backward": 0}
 #: Rows (batch x time) of the weight-gradient reduction per partial sum.
-WGRAD_MIN_ROWS_PER_SLICE = 512
+WGRAD_MIN_ROWS_PER_SLICE = 256
+#: Partial sums of that reduction, at most.
+WGRAD_MAX_SLICES = 128
+#: False keeps H 16 / 32 / 64 on the generic kernels (benchmarks only).
+ALLOW_FAST = True
 
 _lib = None
 
@@ -52,15 +65,23 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_forward.argtypes = [p] * 14 + [i] * 5 + [p]
+        lib.lstm_forward.argtypes = [p] * 15 + [i] * 6 + [p]
         lib.lstm_forward.restype = i
-        lib.lstm_backward.argtypes = [p] * 17 + [i] * 6 + [p]
+        lib.lstm_backward.argtypes = [p] * 18 + [i] * 7 + [p]
         lib.lstm_backward.restype = i
         for limit in (lib.lstm_max_in_dim, lib.lstm_max_hidden):
             limit.argtypes = []
             limit.restype = i
+        lib.lstm_fast_width.argtypes = [i]
+        lib.lstm_fast_width.restype = i
         _lib = lib
     return _lib
+
+
+def fast_path(hid: int) -> bool:
+    """Whether the card's kernels for this width keep W_hh in registers
+    (builds and loads the library)."""
+    return bool(ALLOW_FAST and _load().lstm_fast_width(hid))
 
 
 def _check(rc: int, name: str) -> None:
@@ -69,7 +90,10 @@ def _check(rc: int, name: str) -> None:
 
 
 def _f32(a: torch.Tensor) -> torch.Tensor:
-    return a.to(torch.float32).contiguous()
+    """float32, contiguous and 16-byte aligned (the kernels move 16 bytes a
+    load; a view into a larger tensor may start anywhere)."""
+    a = a.to(torch.float32).contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
 
 
 def _ptr(a) -> int | None:
@@ -100,39 +124,39 @@ def _require_cuda(name: str, seq, hid: int, **shapes) -> None:
 
 def lstm_forward_plain(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_states: bool = False):
     """Plain PyTorch version of K3 (and of K4 with `save_states`): returns
-    y (B, out_ch, T), hn, cn (B, H) [, hs, cs (B, T, H)].  A Python loop over
-    time; differentiable by autograd."""
+    y (B, out_ch, T), hn, cn (B, H) [, hs, cs (B, T, H), gate activations
+    (B, T, 4H)].  A Python loop over time; differentiable by autograd."""
     hid = w_hh.shape[0]
     gx = torch.einsum("bit,ij->btj", seq, w_ih) + b  # (B, T, 4H)
     h, c = h0, c0
-    hs, cs = [], []
+    hs, cs, acts = [], [], []
     for t in range(seq.shape[-1]):
-        gates = gx[:, t] + h @ w_hh
-        gi, gf, gg, go = gates.split(hid, dim=1)
-        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
-        h = torch.sigmoid(go) * torch.tanh(c)
+        pre_i, pre_f, pre_g, pre_o = (gx[:, t] + h @ w_hh).split(hid, dim=1)
+        gi, gf, go = torch.sigmoid(pre_i), torch.sigmoid(pre_f), torch.sigmoid(pre_o)
+        gg = torch.tanh(pre_g)
+        c = gf * c + gi * gg
+        h = go * torch.tanh(c)
         hs.append(h)
         cs.append(c)
+        if save_states:
+            acts.append(torch.cat([gi, gf, gg, go], dim=1))
     hs_t = torch.stack(hs, dim=1)
     y = torch.tanh((hs_t @ fc_k + fc_b).transpose(1, 2) + xres)
     if save_states:
-        return y, h, c, hs_t, torch.stack(cs, dim=1)
+        return y, h, c, hs_t, torch.stack(cs, dim=1), torch.stack(acts, dim=1)
     return y, h, c
 
 
-def lstm_backward_plain(seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn, dcn):
+def lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
     """Plain PyTorch version of K5: reverse-time BPTT of the recurrence
-    from the saved states, with dh_in (B, T, H) the cotangent that the fc
-    head sends into each step's h and (dhn, dcn) that of the final state.
-    Returns dseq (B, in_dim, T), dh0, dc0 (B, H), dw_ih (in_dim, 4H),
-    dw_hh (H, 4H), db (4H,).  A Python loop over time."""
+    from the saved states and gate activations, with dh_in (B, T, H) the
+    cotangent that the fc head sends into each step's h and (dhn, dcn) that
+    of the final state.  Returns dseq (B, in_dim, T), dh0, dc0 (B, H),
+    dw_ih (in_dim, 4H), dw_hh (H, 4H), db (4H,).  A Python loop over time."""
     hid = w_hh.shape[0]
     hprev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
     cprev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
-    gates = torch.einsum("bit,ij->btj", seq, w_ih) + b + hprev @ w_hh
-    pre_i, pre_f, pre_g, pre_o = gates.split(hid, dim=-1)
-    gi, gf, go = torch.sigmoid(pre_i), torch.sigmoid(pre_f), torch.sigmoid(pre_o)
-    gg = torch.tanh(pre_g)
+    gi, gf, gg, go = gates.split(hid, dim=-1)
     dgates = torch.empty_like(gates)
     dh_run, dc_run = dhn, dcn
     for t in range(seq.shape[-1] - 1, -1, -1):
@@ -177,20 +201,21 @@ def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_sta
     y = torch.empty(bsz, out_ch, t, dtype=torch.float32, device=dev)
     hn = torch.empty(bsz, hid, dtype=torch.float32, device=dev)
     cn = torch.empty_like(hn)
-    hs = cs = None
+    hs = cs = gates = None
     if save_states:
         hs = torch.empty(bsz, t, hid, dtype=torch.float32, device=dev)
         cs = torch.empty_like(hs)
+        gates = torch.empty(bsz, t, 4 * hid, dtype=torch.float32, device=dev)
     LAUNCHES[name] += 1
     _check(
         lib.lstm_forward(
             *(a.data_ptr() for a in args), y.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            _ptr(hs), _ptr(cs), bsz, t, hid, in_dim, out_ch,
+            _ptr(hs), _ptr(cs), _ptr(gates), bsz, t, hid, in_dim, out_ch, int(ALLOW_FAST),
             torch.cuda.current_stream(dev).cuda_stream,
         ),
         name,
     )
-    return (y, hn, cn, hs, cs) if save_states else (y, hn, cn)
+    return (y, hn, cn, hs, cs, gates) if save_states else (y, hn, cn)
 
 
 def lstm_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
@@ -203,7 +228,7 @@ def lstm_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
 
 def lstm_train_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
     """K4 on CUDA tensors, the plain version on CPU tensors: K3's outputs
-    and the saved hs, cs (B, T, H)."""
+    and the saved hs, cs (B, T, H) and gate activations (B, T, 4H)."""
     if seq.device.type == "cpu":
         return lstm_forward_plain(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_states=True)
     return _forward_launch(
@@ -219,33 +244,36 @@ def lstm_train_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
 def wgrad_slices(n_rows: int) -> Tuple[int, int]:
     """(n_slices, rows_per_slice) of K5's weight-gradient reduction: a
     function of the shape alone, so the summation order is fixed."""
-    rows = max(WGRAD_MIN_ROWS_PER_SLICE, -(-n_rows // 64))
+    rows = max(WGRAD_MIN_ROWS_PER_SLICE, -(-n_rows // WGRAD_MAX_SLICES))
     rows = -(-rows // 32) * 32
     return -(-n_rows // rows), rows
 
 
-def lstm_backward(seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn, dcn):
+def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
     """K5 on CUDA tensors, the plain version on CPU tensors (see
     `lstm_backward_plain` for the contract).  On the card one call runs the
     reverse walk, then the fixed-order weight-gradient reduction and dseq."""
     if seq.device.type == "cpu":
-        return lstm_backward_plain(seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn, dcn)
+        return lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)
     bsz, in_dim, t = seq.shape
     hid = w_hh.shape[0]
     state, steps = (bsz, hid), (bsz, t, hid)
     _require_cuda(
-        "lstm_backward", seq, hid, hs=(hs, steps), cs=(cs, steps), h0=(h0, state),
-        c0=(c0, state), w_ih=(w_ih, (in_dim, 4 * hid)), w_hh=(w_hh, (hid, 4 * hid)),
-        b=(b, (4 * hid,)), dh_in=(dh_in, steps), dhn=(dhn, state), dcn=(dcn, state),
+        "lstm_backward", seq, hid, hs=(hs, steps), cs=(cs, steps),
+        gates=(gates, (bsz, t, 4 * hid)), h0=(h0, state), c0=(c0, state),
+        w_ih=(w_ih, (in_dim, 4 * hid)), w_hh=(w_hh, (hid, 4 * hid)),
+        dh_in=(dh_in, steps), dhn=(dhn, state), dcn=(dcn, state),
     )
     lib = _load()
-    args = [_f32(a) for a in (seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn, dcn)]
+    args = [_f32(a) for a in (seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)]
     dev = seq.device
     n_rows = bsz * t
     n_slices, rows_per_slice = wgrad_slices(n_rows)
     na = hid + in_dim + 1
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty(n_rows, 4 * hid, **f32)
+    # the generic walk reads W_hh transposed where it does not fit shared memory
+    w_hh_t = None if fast_path(hid) else torch.empty(4 * hid, hid, **f32)
     partial = torch.empty(n_slices, na, 4 * hid, **f32)
     dwcat = torch.empty(na, 4 * hid, **f32)
     dseq = torch.empty(bsz, in_dim, t, **f32)
@@ -254,9 +282,9 @@ def lstm_backward(seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn, dcn):
     LAUNCHES["lstm_backward"] += 1
     _check(
         lib.lstm_backward(
-            *(a.data_ptr() for a in args), dgates.data_ptr(), partial.data_ptr(),
+            *(a.data_ptr() for a in args), dgates.data_ptr(), _ptr(w_hh_t), partial.data_ptr(),
             dwcat.data_ptr(), dseq.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            bsz, t, hid, in_dim, n_slices, rows_per_slice,
+            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(ALLOW_FAST),
             torch.cuda.current_stream(dev).cuda_stream,
         ),
         "lstm_backward",
@@ -276,21 +304,21 @@ class LSTMTrainFunction(torch.autograd.Function):
     def forward(ctx, w_ih, w_hh, b, fc_k, fc_b, x, latent, h0, c0):
         seq = torch.cat([latent, x], dim=1).contiguous()
         xres = x.expand(-1, fc_k.shape[1], -1)
-        y, hn, cn, hs, cs = lstm_train_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
-        ctx.save_for_backward(seq, h0, c0, w_ih, w_hh, b, fc_k, hs, cs, y)
+        y, hn, cn, hs, cs, gates = lstm_train_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
+        ctx.save_for_backward(seq, h0, c0, w_ih, w_hh, fc_k, hs, cs, gates, y)
         ctx.lat_dim = latent.shape[1]
         ctx.in_ch = x.shape[1]
         return y, hn, cn
 
     @staticmethod
     def backward(ctx, dy, dhn, dcn):
-        seq, h0, c0, w_ih, w_hh, b, fc_k, hs, cs, y = ctx.saved_tensors
+        seq, h0, c0, w_ih, w_hh, fc_k, hs, cs, gates, y = ctx.saved_tensors
         dz = dy * (1.0 - y * y)  # (B, out_ch, T)
         dfc_k = torch.einsum("bth,bot->ho", hs, dz)
         dfc_b = dz.sum(dim=(0, 2))
         dh_in = torch.einsum("ho,bot->bth", fc_k, dz).contiguous()
         dseq, dh0, dc0, dw_ih, dw_hh, db = lstm_backward(
-            seq, hs, cs, h0, c0, w_ih, w_hh, b, dh_in, dhn.contiguous(), dcn.contiguous()
+            seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn.contiguous(), dcn.contiguous()
         )
         lat = ctx.lat_dim
         dx_res = dz if dz.shape[1] == ctx.in_ch else dz.sum(dim=1, keepdim=True)

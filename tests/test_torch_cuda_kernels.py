@@ -100,17 +100,27 @@ def _lstm_inputs(b, t, hid, in_dim=2, seed=0):
     )
 
 
+# H 16 and 64 take the register-resident kernels, H 160 (the shipped chorus
+# model's width) and H 50 (not a multiple of 4) the generic ones; T around
+# the forward chunk of 64 and the backward chunk of 32, and ragged
+LSTM_HIDDEN = [16, 64, 160, 50]
+LSTM_SHAPES = [(5, 300), (1, 1), (1, 63), (5, 64), (1, 65)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid", [16, 64, 160])
-def test_lstm_forward_kernels_match_plain(hid):
-    """K3 and K4 (y, hn, cn and K4's saved hs, cs) at B 5, T 300."""
+@pytest.mark.parametrize("b,t", LSTM_SHAPES)
+@pytest.mark.parametrize("hid", LSTM_HIDDEN)
+def test_lstm_forward_kernels_match_plain(hid, b, t):
+    """K3 and K4: y, hn, cn and K4's saved hs, cs and gate activations."""
     _need_cuda()
-    a = _lstm_inputs(5, 300, hid)
+    assert lstm_kernels.fast_path(hid) == (hid in (16, 32, 64))
+    a = _lstm_inputs(b, t, hid)
     lstm_kernels.reset_launch_counts()
     out3 = lstm_kernels.lstm_forward(**a)
     out4 = lstm_kernels.lstm_train_forward(**a)
     assert lstm_kernels.LAUNCHES["lstm_forward"] == lstm_kernels.LAUNCHES["lstm_train_forward"] == 1
     ref = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    assert len(out4) == len(ref) == 6 and out4[5].shape == (b, t, 4 * hid)
     for got, want in zip(out3, ref[:3]):
         assert (got - want).abs().max().item() <= TOL
     for got, want in zip(out4, ref):
@@ -118,17 +128,18 @@ def test_lstm_forward_kernels_match_plain(hid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid", [16, 64, 160])
-def test_lstm_backward_kernel_matches_plain(hid):
-    """K5 against the plain reverse loop on the same saved states, and
-    bit-identical from run to run (fixed-order reduction)."""
+@pytest.mark.parametrize("b,t", LSTM_SHAPES)
+@pytest.mark.parametrize("hid", LSTM_HIDDEN)
+def test_lstm_backward_kernel_matches_plain(hid, b, t):
+    """K5 against the plain reverse loop on the same saved states and gate
+    activations, and bit-identical from run to run (fixed-order reduction)."""
     _need_cuda()
-    a = _lstm_inputs(5, 300, hid, seed=1)
-    _, _, _, hs, cs = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    a = _lstm_inputs(b, t, hid, seed=1)
+    _, _, _, hs, cs, gates = lstm_kernels.lstm_forward_plain(**a, save_states=True)
     g = torch.Generator(device="cuda").manual_seed(0)
-    dh_in = torch.randn(5, 300, hid, device="cuda", generator=g)
-    dhn, dcn = (torch.randn(5, hid, device="cuda", generator=g) for _ in range(2))
-    args = (a["seq"], hs, cs, a["h0"], a["c0"], a["w_ih"], a["w_hh"], a["b"], dh_in, dhn, dcn)
+    dh_in = torch.randn(b, t, hid, device="cuda", generator=g)
+    dhn, dcn = (torch.randn(b, hid, device="cuda", generator=g) for _ in range(2))
+    args = (a["seq"], hs, cs, gates, a["h0"], a["c0"], a["w_ih"], a["w_hh"], dh_in, dhn, dcn)
     got = lstm_kernels.lstm_backward(*args)
     again = lstm_kernels.lstm_backward(*args)
     want = lstm_kernels.lstm_backward_plain(*args)
@@ -139,11 +150,29 @@ def test_lstm_backward_kernel_matches_plain(hid):
 
 
 @pytest.mark.cuda
-def test_lstm_training_pair_matches_autograd_of_plain():
+def test_lstm_generic_kernels_serve_a_fast_width():
+    """With `ALLOW_FAST` off, H 64 runs on the generic kernels and agrees
+    with the register-resident ones within the kernels' tolerance."""
+    _need_cuda()
+    a = _lstm_inputs(3, 100, 64, seed=3)
+    fast = lstm_kernels.lstm_train_forward(**a)
+    lstm_kernels.ALLOW_FAST = False
+    try:
+        assert not lstm_kernels.fast_path(64)
+        generic = lstm_kernels.lstm_train_forward(**a)
+    finally:
+        lstm_kernels.ALLOW_FAST = True
+    for x, y in zip(fast, generic):
+        assert (x - y).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 160])
+def test_lstm_training_pair_matches_autograd_of_plain(hid):
     """The K4/K5 autograd function against autograd through the plain
     forward: the loss and every gradient leaf, dh0 and dc0 included."""
     _need_cuda()
-    a = _lstm_inputs(4, 257, 64, seed=2)
+    a = _lstm_inputs(4, 257, hid, seed=2)
     x, lat = a["seq"][:, 1:].contiguous(), a["seq"][:, :1].contiguous()
     tgt = torch.randn(4, 1, 257, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
     names = ("w_ih", "w_hh", "b", "fc_k", "fc_b")

@@ -3,11 +3,14 @@ forward (plain K3 version) against `LSTMEffectModel.apply` and
 `lstm_effect_model_pallas` in interpret mode, state continuation across a
 cut, gradients through the port's K4/K5 autograd function (plain versions)
 against `jax.vjp` of `lstm_effect_model_pallas_train` in interpret mode, the
-converter on a shipped checkpoint, and `torch.nn.LSTM` as a second oracle
+saved gate activations (the K4 -> K5 contract) against those recomputed from
+the JAX training forward's saved states, the plain K5 fed those gates
+against the JAX VJP, the converter on a shipped checkpoint, and `torch.nn.LSTM` as a second oracle
 of the recurrence.
 
 Tolerances (float32, sums reordered): outputs and states 1e-5 max-abs;
-every gradient leaf within 1e-4 of its largest magnitude."""
+every gradient leaf within 1e-4 of its largest magnitude (5e-4, the
+kernels' gate on the card, where the plain K5 is called directly)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 
 from mod_extraction_tpu.models.lstm import LSTMEffectModel as JLSTM
 from mod_extraction_tpu.ops.pallas_lstm import (
+    _train_fwd_impl,
     lstm_effect_model_pallas,
     lstm_effect_model_pallas_train,
 )
@@ -28,6 +32,8 @@ from mod_extraction_tpu_torch.ops import lstm_kernels as lk
 LSTM64 = "models/lstm_64__lfo_2dcnn_r7__sim_flanger.npz"
 ATOL = 1e-5
 GRAD_REL = 1e-4
+KERNEL_GRAD_REL = 5e-4
+VJP_CASES = [(3, 300, 16), (2, 60, 160), (2, 130, 64)]
 
 
 def _setup(rng, b, t, hid, lat=1, state=False):
@@ -78,7 +84,7 @@ def test_state_continuation_across_a_cut(rng):
     np.testing.assert_allclose(y_full.numpy(), np.asarray(y_pal), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("b,t,hid", [(3, 300, 16), (2, 60, 160)])
+@pytest.mark.parametrize("b,t,hid", VJP_CASES)
 def test_gradients_match_jax_vjp(b, t, hid, rng):
     """Every parameter leaf, dx, dlatent, dh0 and dc0 through the port's
     K4/K5 autograd function against the JAX custom VJP, for cotangents on
@@ -112,6 +118,69 @@ def test_gradients_match_jax_vjp(b, t, hid, rng):
         assert err <= GRAD_REL * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
+def _plain_forward_saved(tm, x, latent, h0, c0):
+    seq = torch.cat([_t(latent), _t(x)], 1)
+    with torch.no_grad():
+        out = lk.lstm_forward_plain(seq, _t(x), _t(h0), _t(c0), tm.w_ih, tm.w_hh, tm.b_gates,
+                                    tm.fc_kernel, tm.fc_bias, save_states=True)
+    return seq, out
+
+
+@pytest.mark.parametrize("b,t,hid", [(3, 70, 16), (2, 130, 64)])
+def test_saved_gate_activations_match_jax_saved_states(b, t, hid, rng):
+    """The gate activations that the plain K4 saves equal sigmoid / tanh of
+    the pre-activations recomputed in numpy from the h that the JAX training
+    forward saves (its kernel saves no gates: K5 there recomputes them)."""
+    jm, params, tm, x, latent, h0, c0 = _setup(rng, b, t, hid, state=True)
+    p = params["params"]
+    _, _, _, hs_j, _, _, _ = _train_fwd_impl(
+        p["w_ih"], p["w_hh"], p["b_gates"], p["fc"]["kernel"], p["fc"]["bias"], x, latent, h0, c0,
+        interpret=True,
+    )
+    hs_j = np.asarray(hs_j)[:t, :, :b].transpose(2, 0, 1)  # (B, T, H)
+    seq, (_, _, _, hs, _, gates) = _plain_forward_saved(tm, x, latent, h0, c0)
+    np.testing.assert_allclose(hs.numpy(), hs_j, rtol=0, atol=ATOL)
+    hprev = np.concatenate([h0[:, None], hs_j[:, :-1]], axis=1).astype(np.float64)
+    pre = (np.einsum("bit,ij->btj", seq.numpy().astype(np.float64), p["w_ih"].astype(np.float64))
+           + p["b_gates"] + hprev @ p["w_hh"].astype(np.float64))
+    want = 1.0 / (1.0 + np.exp(-pre))
+    want[..., 2 * hid:3 * hid] = np.tanh(pre[..., 2 * hid:3 * hid])
+    assert gates.shape == (b, t, 4 * hid)
+    np.testing.assert_allclose(gates.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,t,hid", VJP_CASES)
+def test_plain_backward_from_saved_gates_matches_jax_vjp(b, t, hid, rng):
+    """`lstm_backward_plain` called directly on the saved (hs, cs, gates),
+    with the head's cotangent formed here, against the JAX custom VJP: the
+    recurrence's leaves within the kernels' 5e-4 gate."""
+    jm, params, tm, x, latent, h0, c0 = _setup(rng, b, t, hid, state=True)
+    dy = rng.standard_normal((b, 1, t)).astype(np.float32)
+    dhn = rng.standard_normal((b, hid)).astype(np.float32)
+    dcn = rng.standard_normal((b, hid)).astype(np.float32)
+
+    def f(p, x_, lat_, h_, c_):
+        y, (hn, cn) = lstm_effect_model_pallas_train(p, x_, lat_, (h_, c_), interpret=True)
+        return y, hn, cn
+
+    _, vjp = jax.vjp(f, params, x, latent, h0, c0)
+    gp, gx, glat, gh0, gc0 = vjp((jnp.asarray(dy), jnp.asarray(dhn), jnp.asarray(dcn)))
+    gp = gp["params"]
+    seq, (y, _, _, hs, cs, gates) = _plain_forward_saved(tm, x, latent, h0, c0)
+    with torch.no_grad():
+        dz = _t(dy) * (1.0 - y * y)
+        dh_in = torch.einsum("ho,bot->bth", tm.fc_kernel, dz)
+        dseq, dh0, dc0, dw_ih, dw_hh, db = lk.lstm_backward_plain(
+            seq, hs, cs, gates, _t(h0), _t(c0), tm.w_ih, tm.w_hh, dh_in, _t(dhn), _t(dcn)
+        )
+    pairs = [(dw_ih, gp["w_ih"]), (dw_hh, gp["w_hh"]), (db, gp["b_gates"]), (dh0, gh0), (dc0, gc0),
+             (dseq[:, :1], glat), (dseq[:, 1:] + dz, gx)]
+    for ours, ref in pairs:
+        ref = np.asarray(ref)
+        assert ours.shape == ref.shape
+        assert np.abs(ours.numpy() - ref).max() <= KERNEL_GRAD_REL * np.abs(ref).max()
+
+
 def test_plain_backward_matches_autograd(rng):
     """The plain K5 (manual reverse loop) equals autograd through the plain
     forward loop: the contract the CUDA K5 is held to on the card."""
@@ -126,14 +195,14 @@ def test_plain_backward_matches_autograd(rng):
     leaves = [seq, h0, c0, w_ih, w_hh, bias]
     for a in leaves:
         a.requires_grad_()
-    _, hn, cn, hs, cs = lk.lstm_forward_plain(seq, xres.detach(), h0, c0, w_ih, w_hh, bias,
-                                              fc_k, fc_b, save_states=True)
+    _, hn, cn, hs, cs, gates = lk.lstm_forward_plain(seq, xres.detach(), h0, c0, w_ih, w_hh, bias,
+                                                     fc_k, fc_b, save_states=True)
     dh_in = torch.randn(b, t, hid, generator=g)
     dhn, dcn = torch.randn(b, hid, generator=g), torch.randn(b, hid, generator=g)
     ref = torch.autograd.grad((hs, hn, cn), leaves, (dh_in, dhn, dcn))
     dseq, dh0, dc0, dw_ih, dw_hh, db = lk.lstm_backward_plain(
-        seq.detach(), hs.detach(), cs.detach(), h0.detach(), c0.detach(), w_ih.detach(),
-        w_hh.detach(), bias.detach(), dh_in, dhn, dcn,
+        seq.detach(), hs.detach(), cs.detach(), gates.detach(), h0.detach(), c0.detach(),
+        w_ih.detach(), w_hh.detach(), dh_in, dhn, dcn,
     )
     for ours, r in zip((dseq, dh0, dc0, dw_ih, dw_hh, db), ref):
         assert (ours - r).abs().max().item() <= GRAD_REL * r.abs().max().item()
@@ -174,7 +243,7 @@ def test_recurrence_matches_torch_nn_lstm(rng):
         ref.bias_hh_l0.zero_()
         seq = torch.cat([_t(latent), _t(x)], 1)
         hs_ref, (hn_ref, cn_ref) = ref(seq.permute(2, 0, 1), (_t(h0)[None], _t(c0)[None]))
-        _, hn, cn, hs, _ = lk.lstm_forward_plain(
+        _, hn, cn, hs, _, _ = lk.lstm_forward_plain(
             seq, _t(x), _t(h0), _t(c0), tm.w_ih, tm.w_hh, tm.b_gates, tm.fc_kernel,
             tm.fc_bias, save_states=True,
         )
@@ -190,3 +259,15 @@ def test_init_is_seeded_and_uniform():
         assert torch.equal(va, vb), k
     for p in (a.w_ih, a.w_hh, a.b_gates):
         assert p.abs().max().item() <= 1.0 / 8.0
+
+
+@pytest.mark.parametrize("n_rows", [1, 300, 5 * 300, 32 * 1024, 32 * 1024 + 7, 3 * 86016])
+def test_wgrad_slices_depend_on_the_shape_alone(n_rows):
+    """K5's weight-gradient reduction is cut into slices by the row count
+    alone (so its summation order is fixed): the slices cover every row,
+    hold whole 32-row passes, and stay within the stated limits."""
+    n_slices, rows = lk.wgrad_slices(n_rows)
+    assert (n_slices, rows) == lk.wgrad_slices(n_rows)
+    assert n_slices * rows >= n_rows > (n_slices - 1) * rows
+    assert rows % 32 == 0 and rows >= lk.WGRAD_MIN_ROWS_PER_SLICE
+    assert n_slices <= lk.WGRAD_MAX_SLICES

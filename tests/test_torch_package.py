@@ -124,9 +124,9 @@ def test_lstm_kernel_wrappers_do_not_fall_back_off_the_cpu():
     for fn in (lstm_kernels.lstm_forward, lstm_kernels.lstm_train_forward):
         with pytest.raises(RuntimeError, match="meta"):
             fn(seq, xres, h, h, *w)
-    hs = torch.empty(b, t, hid, **m)
+    hs, gates = torch.empty(b, t, hid, **m), torch.empty(b, t, 4 * hid, **m)
     with pytest.raises(RuntimeError, match="meta"):
-        lstm_kernels.lstm_backward(seq, hs, hs, h, h, *w[:3], hs, h, h)
+        lstm_kernels.lstm_backward(seq, hs, hs, gates, h, h, *w[:2], hs, h, h)
     assert set(lstm_kernels.LAUNCHES.values()) == {0}
 
 
