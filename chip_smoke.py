@@ -192,6 +192,88 @@ def check_kernels_small(fxk, rng) -> None:
     print(f"[K2 phaser n={b * c} T={t}] max_abs_err={err:.3e}")
     if not err <= KERNEL_TOL:
         fail(f"K2 disagrees with its plain version: {err}")
+    check_phaser_scan(fxk, rng)
+
+
+# K2 at the edges of its chunked scan: T around the chunk and past a block's
+# span (32 chunks); 1, 6 and 8 stages take the scan, 12 the sequential walk
+PHASER_EDGE_T = (1, 127, 128, 129, 6000)
+PHASER_EDGE_STAGES = (1, 6, 8, 12)
+
+
+def phaser_extremes(rng, b, t, fb=0.7, g_lo=0.001, g_hi=32.0):
+    """K2 arguments with g swept log-uniformly over [g_lo, g_hi] (tan(0.49
+    pi) ~ 32 is the top of the phaser's range) and a fixed feedback: the
+    corners of the scan's numerics."""
+    x = torch.as_tensor(rng.uniform(-0.9, 0.9, (b, 1, t)).astype(np.float32), device="cuda")
+    ph = rng.uniform(0, 2 * np.pi, (b, 1, 1))
+    lfo = 0.5 + 0.5 * np.sin(2 * np.pi * 0.9 * np.arange(t) / SR + ph)
+    g = torch.as_tensor((g_lo * (g_hi / g_lo) ** lfo).astype(np.float32), device="cuda")
+    mix = torch.as_tensor(rng.uniform(0.2, 1.0, (b, 1, 1)).astype(np.float32), device="cuda")
+    return x, g, torch.full((b, 1, 1), fb, device="cuda"), mix
+
+
+def walk64_chunk_states(x, g, fb, n_stages: int, chunk: int) -> np.ndarray:
+    """The state (s_1 .. s_n, last) entering every chunk of a float64 walk
+    of the cascade, numpy on the CPU, rows at once: (rows, chunks, n + 1)."""
+    x64 = x.reshape(-1, x.shape[-1]).double().cpu().numpy()
+    g64 = g.expand(x.shape).reshape(x64.shape).double().cpu().numpy()
+    big_g = g64 / (1.0 + g64)
+    f = fb.expand(x.shape[0], x.shape[1], 1).reshape(-1).double().cpu().numpy()
+    rows, t = x64.shape
+    s = np.zeros((rows, n_stages))
+    last = np.zeros(rows)
+    states = np.zeros((rows, -(-t // chunk), n_stages + 1))
+    for i in range(t):
+        if i % chunk == 0:
+            states[:, i // chunk, :n_stages], states[:, i // chunk, n_stages] = s, last
+        gi = big_g[:, i]
+        u = x64[:, i] + f * last
+        for k in range(n_stages):
+            v = gi * (u - s[:, k])
+            lp = v + s[:, k]
+            s[:, k] = lp + v
+            u = 2.0 * lp - u
+        last = u
+    return states
+
+
+def phaser_scan_numerics(fxk, args, n_stages: int = 6, chunk: int | None = None, z64=None) -> tuple:
+    """(max|P_c| over the chunks that are joined, max|z_c|, worst z_c error
+    against a float64 walk) of K2's scan on these arguments, in chunks of
+    `chunk` (the kernel's own by default); `z64`: the walk's states, if
+    already at hand."""
+    chunk = chunk or fxk.PHASER_CHUNK
+    _, p, _, z = fxk.phaser(*args, n_stages, chunk_states=True, chunk=chunk)
+    if z64 is None:
+        z64 = walk64_chunk_states(args[0], args[1], args[2], n_stages, chunk)
+    max_p = p[:, :-1].abs().max().item() if p.shape[1] > 1 else 0.0
+    return max_p, z.abs().max().item(), float(np.abs(z.double().cpu().numpy() - z64).max())
+
+
+def check_phaser_scan(fxk, rng) -> None:
+    """K2 against its plain version at the edges of the scan (T, stages),
+    with feedback 0.7 and g over [0.001, 32], then at the full (32, 88200)
+    shape there, with the scan's own numbers."""
+    worst = 0.0
+    for n_stages in PHASER_EDGE_STAGES:
+        for t in PHASER_EDGE_T:
+            args = phaser_extremes(rng, 5, t)
+            err = max_abs(fxk.phaser(*args, n_stages), fxk.phaser_plain(*args, n_stages))
+            if not err <= KERNEL_TOL:
+                fail(f"K2 n_stages={n_stages} T={t} (fb 0.7, g 0.001-32) disagrees with its plain version: {err}")
+            worst = max(worst, err)
+    print(f"[K2 edges: stages {PHASER_EDGE_STAGES} x T {PHASER_EDGE_T}, fb 0.7, g 0.001-32, chunk "
+          f"{fxk.PHASER_CHUNK}] worst max_abs_err={worst:.3e}")
+    args = phaser_extremes(rng, BATCH, N_SAMPLES)
+    err = max_abs(fxk.phaser(*args, 6), fxk.phaser_plain(*args, 6))
+    max_p, max_z, z_err = phaser_scan_numerics(fxk, args)
+    print(f"[K2 n={BATCH} T={N_SAMPLES} fb 0.7, g 0.001-32] max_abs_err={err:.3e} max|P_c|={max_p:.4f} "
+          f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
+    if not err <= KERNEL_TOL:
+        fail(f"K2 at full shape with fb 0.7 and g 0.001-32 disagrees with its plain version: {err}")
+    if not z_err <= KERNEL_TOL:
+        fail(f"K2's chunk entry states are {z_err} from a float64 walk")
 
 
 def profile_train_step(task, batch, label: str, top: int = 15) -> None:
@@ -340,7 +422,7 @@ def run_stage1(fxk, rng) -> list:
     rows = []
     for name, key, kern, plain, args, replaces, n_bytes, ops_per in specs:
         out = kern(*args)
-        ms = cuda_ms(lambda: kern(*args), 5)
+        ms = cuda_ms_median(lambda: kern(*args))
         ref_out = []
         plain_ms = cuda_ms(lambda: ref_out.append(plain(*args)), 1)
         err = max_abs(out, ref_out[0])
@@ -351,6 +433,10 @@ def run_stage1(fxk, rng) -> list:
             name, "mod_extraction_tpu_torch/csrc/fx.cu", replaces, launches[key], err, ms,
             plain_ms, n_bytes, ops_per * n_lanes * t_len, None,
         ))
+    max_p, max_z, z_err = phaser_scan_numerics(fxk, ph_args[:4])
+    print(f"[phaser_allpass scan on the path's data, chunk {fxk.PHASER_CHUNK}] max|P_c|={max_p:.4f} "
+          f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
+    rows[1].update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err)
     # -- where one full-width train step spends the card's time
     profile_train_step(task, train_batches[1], "stage 1")
     return rows
@@ -422,22 +508,22 @@ def run_stage1_kernel_wgrad(fxk, ck, rng) -> list:
     # -- the kernel against its plain version: a small shape with ragged
     #    edges (T a multiple of no tile, few channels), then the path's shapes
     check_wgrad(ck, rand(2, 16, 6, 57), rand(2, 8, 6, 57), 4, "small B=2 ci=16 co=8 F=6 T=57 dil=4")
+    check_wgrad(ck, rand(2, 64, 6, 352), rand(2, 64, 6, 352), 16, "B=2 F=6 T=352 dil=16 (aligned T, shifts past a tile)")
+    check_wgrad(ck, rand(1, 64, 1, N_FRAMES), rand(1, 64, 1, N_FRAMES), 1, f"B=1 F=1 T={N_FRAMES} dil=1")
     layers = []
     for f, dil in WGRAD_LAYERS:
         x, g = rand(BATCH, TRUNK_CH, f, N_FRAMES), rand(BATCH, TRUNK_CH, f, N_FRAMES)
         label = f"B={BATCH} F={f} T={N_FRAMES} dil={dil}"
         err, plain_ms = check_wgrad(ck, x, g, dil, label)
         n_ops, n_bytes = wgrad_ops_bytes(BATCH, f, N_FRAMES, TRUNK_CH, TRUNK_CH)
-        ms = cuda_ms(lambda: ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil), 5)
-        lib = library_wgrad(x, g, dil)
-        lib()
-        library_ms = cuda_ms(lib, 5)
+        ms = cuda_ms_median(lambda: ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil))
+        library_ms = cuda_ms_median(library_wgrad(x, g, dil))
         bound_ms = max(n_ops / BF16_OPS_S, n_bytes / HBM_BYTES_S) * 1e3
-        print(f"[K6 {label}] ms={ms:.3f} bound_ms={bound_ms:.3f} (operations) "
+        print(f"[K6 {label}] ms={ms:.3f} bound_ms={bound_ms:.3f} (operations) bound/ms={bound_ms / ms:.3f} "
               f"tflops={n_ops / ms / 1e9:.1f} library_ms={library_ms:.3f} plain_ms={plain_ms:.1f}")
         layers.append(dict(bins=f, dil=dil, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, err=err, n_ops=n_ops, n_bytes=n_bytes))
-        del x, g, lib
+        del x, g
     torch.cuda.empty_cache()
 
     # -- the main path, counted per step

@@ -9,35 +9,50 @@
 //   dW[co, ci, a, j] = sum_{b, f, t} x[b, ci, f + a - kf/2, t + (j - kt/2) dil]
 //                                    * dy[b, co, f, t]
 //
-// with x read as zero outside [0, F) x [0, T).  Layouts (row-major): x
-// (B, Ci, F, T) and dy (B, Co, F, T) in bf16, partial (n_split, kf, kt, Ci,
-// Co) and the result (Co, Ci, kf, kt) in float32.  bf16 products are exact
-// in float32 and the accumulation is float32, as in the TPU kernel.
+// with x read as zero outside [0, F) x [0, T).  Layouts: x (B, F, T, Ci) and
+// dy (B, F, T, Co) in bf16, channels last (the wrapper makes that copy from
+// torch's NCHW), partial (n_split, kf, kt, Co, Ci) and the result (Co, Ci,
+// kf, kt) in float32.  bf16 products are exact in float32 and the
+// accumulation is float32, as in the TPU kernel.
 //
 // What bounds it on the H100: 2 B F T kf kt Ci Co operations against
 // 2 B F T (Ci + Co) bytes read once, about 4000 operations per byte at the
-// trunk's 64 channels, so the tensor cores bind, not the memory.  This first
-// version is far from that bound (PERF.md has its times): it waits for the
-// element-wise copy into shared memory more than for its products.
+// trunk's 64 channels: the tensor cores bind, not the memory.
 //
-// Design.  For one row (b, f) both operands are contiguous along t, the
-// contraction axis, so tap (a, j) is the product of a (Ci x t) row-major
-// tile of x, shifted by (j - kt/2) dil in t, with a (t x Co) column-major
-// tile of dy: exactly the operand layouts of mma.sync m16n8k16 (bf16 in,
-// float32 accumulators), with no transpose anywhere.  A block owns one time
-// tap j and all kf frequency taps, one warp per tap a, each warp holding a
-// 64 x 64 (Ci x Co) accumulator in registers for the whole launch.  Because
-// the block's shift is one number, it is applied while a tile is copied from
-// device memory into shared memory (element by element: rows of odd T are
-// only 2-byte aligned anyway), so shared memory is aligned for 32-bit
-// fragment reads, the zero padding is a mask in that copy, and neither x nor
-// dy needs a padded copy.  A block walks f for a (b, time tile) unit: step f
-// needs x rows f - kf/2 .. f + kf/2, of which all but one are already in a
-// ring of kf + 1 row tiles, and dy row f, double buffered, so a step is one
-// barrier, and the loads of the next step's two tiles are started before this
-// step's products and stored after them.  The dy fragments are shared by a
-// warp's 64 x 64 products and loaded once per 16 steps of t.  Two blocks
-// share an SM, so one's products cover the other's barrier and stores.
+// Design (Hopper's: TMA, mbarriers, wgmma, one producer thread).  Tap (a,
+// j) for one row (b, f) is the product of the dy tile (64 t x 64 co) with
+// the x tile of row f + a - kf/2 shifted by (j - kt/2) dil in t (64 t x 64
+// ci), contracted over t.  One 4-D tensor map per operand over (C, T, F,
+// B); a box is 64 c x 64 t x 1 f x 1 b (8 KB, 128-byte swizzle), and wgmma
+// reads both boxes MN-major (the channels contiguous, t along K).  Channels
+// last is what lets TMA apply the time shift: the shift is the box's t
+// coordinate, which may be odd, negative or past T.  Over a time-innermost
+// layout (rows padded to 16 bytes) the same loads faulted on the H100
+// ("illegal instruction") once a shift moved the innermost coordinate;
+// here it stays a multiple of 64 and the shift moves an outer one.  TMA
+// fills zeros outside the tensor, so the 'same' padding, the ragged t tail
+// and channels past Ci / Co need no mask.  Rows f + a - kf/2 outside [0, F) are not loaded; their
+// products read a zero tile.
+//
+// A block owns J time taps (2 for kf <= 5, 1 for kf 7) and walks f for a
+// (b, 64-frame tile) unit: x rows sit in a ring of 8 slots (per time tap),
+// each loaded once per unit and used by every frequency tap, and dy rows in
+// a ring of 4.  The block is three
+// warpgroups.  The third gives its registers to the other two
+// (setmaxnreg 40 / 232) and one of its threads issues the TMA loads in the
+// order the consumers use them, each slot guarded by a "full" mbarrier
+// (bytes arrived) and an "empty" one (every consumer warp done).  The
+// first two are the consumers.  With J = 2 each takes one time tap and all
+// kf frequency taps (kf 64 x 64 float32 accumulators in registers, 32 a tap
+// a thread); with kf 7 they share one time tap and split the frequency taps
+// 4 + 3.  Both read the same dy tile.  A step issues kf x 4 wgmma
+// m64n64k16 (dy the A operand, x the B), commits them as a group and waits
+// for the previous step's group before releasing its slots, so one group is
+// always in flight.
+//
+// The channels-last copies are made by the conv_wgrad_channels_last
+// kernels below (tile transposes through shared memory); they are part of
+// K6's time on the card.
 //
 // The TPU kernel sums into one resident output block across its sequential
 // grid; here the contraction is split over blocks (each takes every
@@ -47,193 +62,274 @@
 // kernel's halo copies of dy, its time-tile ladder and chunk_f serve VMEM
 // and BlockSpec and have no counterpart.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kChanTile = 64;             // Ci and Co per block
-constexpr int kTimeTile = 64;             // t per staged tile
-constexpr int kRowWords = kTimeTile / 2 + 4;  // 36 words: fragment reads hit 32 banks
-constexpr int kTileWords = kChanTile * kRowWords;
+using namespace hopper;
+
+constexpr int kChanTile = 64;                          // Ci and Co per block
+constexpr int kTimeTile = 64;                          // t per box (its rows)
+constexpr int kTileBytes = kChanTile * kTimeTile * 2;  // one box, 8 KB: 64 rows of 128 bytes
 constexpr int kMaxKf = 7;
+constexpr int kXRing = 8;     // x row slots per time tap (>= kf + 1)
+constexpr int kDyStages = 4;  // dy row slots
+constexpr int kConsumers = 2;  // warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;  // and the producer's warpgroup
+constexpr uint32_t kReleases = 4 * kConsumers;  // each consumer warp's lane 0
 
-__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
-                                                  const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A tile is staged by all warps: warp w takes channels w, w + KF, ..., each
-// lane one pair of neighbouring t.  `fetch_tile` reads src[c][t_start + 2
-// lane + {0, 1}] into registers (channels >= n_ch and times outside [0,
-// t_len) read as 0), `stash_tile` writes them to the shared tile.  Keeping
-// the two apart lets the loads of step f + 1 fly while step f's products
-// run.  Every load is unconditional, from an address clamped into the
-// tensor, and masked afterwards: a branch around a load would make each one
-// wait for the one before.
 template <int KF>
-struct TileRegs {
-  static constexpr int kIters = (kChanTile + KF - 1) / KF;
-  uint32_t v[kIters];
+struct Cfg {
+  static constexpr int J = KF <= 5 ? 2 : 1;               // time taps a block owns
+  static constexpr int NA = J == 2 ? KF : (KF + 1) / 2;   // frequency taps a warpgroup holds
+  static constexpr int kXBytes = J * kXRing * kTileBytes;
+  static constexpr int kBarBytes = 8 * 2 * (kXRing + kDyStages);
+  // 1 KB to align the tiles, the zero tile, the x rings, the dy ring, barriers
+  static constexpr int kSmem = 1024 + kTileBytes + kXBytes + kDyStages * kTileBytes + kBarBytes;
 };
 
 template <int KF>
-__device__ __forceinline__ void fetch_tile(TileRegs<KF>& regs,
-                                           const unsigned short* __restrict__ src,
-                                           long long chan_stride, int n_ch, int t_start,
-                                           int t_len, int k_max, int warp, int lane) {
-  const int col = 2 * lane;
-  const int t = t_start + col;
-  const bool lo_ok = col < k_max && t >= 0 && t < t_len;
-  const bool hi_ok = col < k_max && t + 1 >= 0 && t + 1 < t_len;
-  const int t_lo = min(max(t, 0), t_len - 1);
-  const int t_hi = min(max(t + 1, 0), t_len - 1);
-  unsigned short lo[TileRegs<KF>::kIters], hi[TileRegs<KF>::kIters];
-#pragma unroll
-  for (int it = 0; it < TileRegs<KF>::kIters; ++it) {
-    const unsigned short* row = src + min(warp + KF * it, n_ch - 1) * chan_stride;
-    lo[it] = __ldg(row + t_lo);
-    hi[it] = __ldg(row + t_hi);
-  }
-#pragma unroll
-  for (int it = 0; it < TileRegs<KF>::kIters; ++it) {
-    const bool ch_ok = warp + KF * it < n_ch;
-    const uint32_t l = (ch_ok && lo_ok) ? lo[it] : 0u;
-    const uint32_t h = (ch_ok && hi_ok) ? hi[it] : 0u;
-    regs.v[it] = l | (h << 16);
-  }
-}
-
-template <int KF>
-__device__ __forceinline__ void stash_tile(uint32_t* dst, const TileRegs<KF>& regs, int k_max,
-                                           int warp, int lane) {
-  if (2 * lane >= k_max) return;
-#pragma unroll
-  for (int it = 0; it < TileRegs<KF>::kIters; ++it) {
-    const int c = warp + KF * it;
-    if (c < kChanTile) dst[c * kRowWords + lane] = regs.v[it];
-  }
-}
-
-template <int KF>
-__global__ void __launch_bounds__(32 * KF, (KF <= 5) ? 2 : 1)
-conv_wgrad_partial_kernel(const unsigned short* __restrict__ x,
-                          const unsigned short* __restrict__ dy, float* __restrict__ partial,
-                          int batch, int ci_n, int co_n, int f_n, int t_n, int kt, int dil,
-                          int n_tt, int n_split, int n_ci_tiles) {
-  constexpr int kRing = KF + 1;
+__global__ void __launch_bounds__(kThreads, 1)
+conv_wgrad_partial_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap dy_map, float* __restrict__ partial,
+                          int batch, int ci_n, int co_n, int f_n, int kt, int dil, int n_tt,
+                          int n_split, int n_ci_tiles) {
+  using C = Cfg<KF>;
   constexpr int kHalf = KF / 2;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* xs = smem;                        // [kRing][kChanTile][kRowWords]
-  uint32_t* dys = smem + kRing * kTileWords;  // [2][kChanTile][kRowWords]
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t zero_tile = (raw + 1023) & ~1023u;
+  const uint32_t x_tiles = zero_tile + kTileBytes;  // [J][kXRing] boxes
+  const uint32_t dy_tiles = x_tiles + C::kXBytes;   // [kDyStages] boxes
+  const uint32_t bars = dy_tiles + kDyStages * kTileBytes;
+  auto x_full = [&](uint32_t s) { return bars + 8 * s; };
+  auto x_empty = [&](uint32_t s) { return bars + 8 * (kXRing + s); };
+  auto dy_full = [&](uint32_t s) { return bars + 8 * (2 * kXRing + s); };
+  auto dy_empty = [&](uint32_t s) { return bars + 8 * (2 * kXRing + kDyStages + s); };
 
-  const int j = blockIdx.x;
+  const int jg = blockIdx.x;
   const int split = blockIdx.y;
   const int ci0 = (blockIdx.z % n_ci_tiles) * kChanTile;
   const int co0 = (blockIdx.z / n_ci_tiles) * kChanTile;
-  const int n_ci = min(kChanTile, ci_n - ci0);
-  const int n_co = min(kChanTile, co_n - co0);
-  const int a = threadIdx.x >> 5;  // this warp's frequency tap
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int shift = (j - kt / 2) * dil;
-  const long long plane = static_cast<long long>(f_n) * t_n;
 
-  float acc[4][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+  uint4* zt = reinterpret_cast<uint4*>(smem_raw + (zero_tile - raw));
+  for (int i = threadIdx.x; i < kTileBytes / 16; i += kThreads) zt[i] = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (uint32_t s = 0; s < kXRing; ++s) {
+      mbar_init(x_full(s), 1);
+      mbar_init(x_empty(s), kReleases);
+    }
+    for (uint32_t s = 0; s < kDyStages; ++s) {
+      mbar_init(dy_full(s), 1);
+      mbar_init(dy_empty(s), kReleases);
+    }
+    fence_barrier_init();
+  }
+  fence_proxy_async();  // the zero tile, for wgmma
+  __syncthreads();
 
   const int n_units = batch * n_tt;
-  for (int u = split; u < n_units; u += n_split) {
-    const int b = u / n_tt;
-    const int t0 = (u % n_tt) * kTimeTile;
-    const int k_max = min(kTimeTile, ((t_n - t0 + 15) / 16) * 16);
-    const unsigned short* xb = x + (static_cast<long long>(b) * ci_n + ci0) * plane;
-    const unsigned short* dyb = dy + (static_cast<long long>(b) * co_n + co0) * plane;
+  const int n_mine = split < n_units ? (n_units - split + n_split - 1) / n_split : 0;
 
-    // step 0 reads x rows 0 .. kHalf (rows < 0 are skipped) and dy row 0;
-    // the barrier that ended the previous unit freed every tile
-    TileRegs<KF> xr, dr;
-    for (int r = 0; r <= kHalf && r < f_n; ++r) {
-      fetch_tile<KF>(xr, xb + r * t_n, plane, n_ci, t0 + shift, t_n, k_max, a, lane);
-      stash_tile<KF>(xs + ((r + kHalf) % kRing) * kTileWords, xr, k_max, a, lane);
-    }
-    fetch_tile<KF>(dr, dyb, plane, n_co, t0, t_n, k_max, a, lane);
-    stash_tile<KF>(dys, dr, k_max, a, lane);
-    __syncthreads();
-
-    for (int f = 0; f < f_n; ++f) {
-      // step f + 1 is staged into the ring slot and the dy buffer that step
-      // f does not read: its loads are started before this step's products
-      // and written to shared memory after them
-      const int rn = f + 1 + kHalf;
-      const bool next = f + 1 < f_n;
-      if (next) {
-        if (rn < f_n)
-          fetch_tile<KF>(xr, xb + rn * t_n, plane, n_ci, t0 + shift, t_n, k_max, a, lane);
-        fetch_tile<KF>(dr, dyb + (f + 1) * t_n, plane, n_co, t0, t_n, k_max, a, lane);
-      }
-      const int r = f + a - kHalf;  // x row of this warp's tap
-      if (r >= 0 && r < f_n) {
-        const uint32_t* xw = xs + ((f + a) % kRing) * kTileWords;
-        const uint32_t* dw = dys + (f & 1) * kTileWords;
-        for (int k0 = 0; k0 < k_max; k0 += 16) {
-          const int kw = (k0 >> 1) + tg;
-          uint32_t bfr[8][2];
+  if (warp >= 4 * kConsumers) {
+    // producer: x rows f - kf/2 .. f + kf/2 and dy row f before step f, in
+    // the consumers' order; load i of a ring goes to slot i % size.  Its
+    // warpgroup gives its registers to the consumers; one thread works.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 4 * kConsumers * 32) return;
+    for (int ul = 0; ul < n_mine; ++ul) {
+      const int u = split + ul * n_split;
+      const int b = u / n_tt;
+      const int t0 = (u % n_tt) * kTimeTile;
+      for (int f = 0; f < f_n; ++f) {
+        const int r_hi = min(f + kHalf, f_n - 1);
+        for (int r = f == 0 ? 0 : f + kHalf; r <= r_hi; ++r) {
+          const uint32_t i = static_cast<uint32_t>(ul * f_n + r);
+          const uint32_t s = i % kXRing;
+          mbar_wait(x_empty(s), ((i / kXRing) & 1) ^ 1);
+          mbar_expect_tx(x_full(s), C::J * kTileBytes);
 #pragma unroll
-          for (int ni = 0; ni < 8; ++ni) {
-            bfr[ni][0] = dw[(ni * 8 + g) * kRowWords + kw];
-            bfr[ni][1] = dw[(ni * 8 + g) * kRowWords + kw + 4];
-          }
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            uint32_t afr[4];
-            afr[0] = xw[(mi * 16 + g) * kRowWords + kw];
-            afr[1] = xw[(mi * 16 + g + 8) * kRowWords + kw];
-            afr[2] = xw[(mi * 16 + g) * kRowWords + kw + 4];
-            afr[3] = xw[(mi * 16 + g + 8) * kRowWords + kw + 4];
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni) mma_bf16_m16n8k16(acc[mi][ni], afr, bfr[ni]);
+          for (int jj = 0; jj < C::J; ++jj) {
+            const int shift = (jg * C::J + jj - kt / 2) * dil;
+            tma_load_4d(x_tiles + (jj * kXRing + s) * kTileBytes, &x_map, x_full(s), ci0,
+                        t0 + shift, r, b);
           }
         }
+        const uint32_t i = static_cast<uint32_t>(ul * f_n + f);
+        const uint32_t s = i % kDyStages;
+        mbar_wait(dy_empty(s), ((i / kDyStages) & 1) ^ 1);
+        mbar_expect_tx(dy_full(s), kTileBytes);
+        tma_load_4d(dy_tiles + s * kTileBytes, &dy_map, dy_full(s), co0, t0, f, b);
       }
-      if (next) {
-        if (rn < f_n) stash_tile<KF>(xs + ((rn + kHalf) % kRing) * kTileWords, xr, k_max, a, lane);
-        stash_tile<KF>(dys + ((f + 1) & 1) * kTileWords, dr, k_max, a, lane);
-      }
-      __syncthreads();
     }
+    return;
   }
 
-  float* out = partial +
-               ((static_cast<long long>(split) * KF + a) * kt + j) * ci_n * co_n;
+  // consumers
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2;
+  const int jj = C::J == 2 ? wg : 0;
+  const int a0 = C::J == 2 ? 0 : wg * C::NA;  // this warpgroup's first frequency tap
+  const uint32_t my_x = x_tiles + jj * kXRing * kTileBytes;
+  float acc[C::NA][32];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int a = 0; a < C::NA; ++a)
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int co = co0 + ni * 8 + tg * 2;
+    for (int e = 0; e < 32; ++e) acc[a][e] = 0.0f;
+
+  // releases the slots whose last reader was step f of unit ul
+  auto release = [&](int ul, int f) {
+    if (lane != 0) return;
+    mbar_arrive(dy_empty(static_cast<uint32_t>(ul * f_n + f) % kDyStages));
+    if (f - kHalf >= 0) mbar_arrive(x_empty(static_cast<uint32_t>(ul * f_n + f - kHalf) % kXRing));
+    if (f == f_n - 1)
+      for (int r = max(0, f - kHalf + 1); r < f_n; ++r)
+        mbar_arrive(x_empty(static_cast<uint32_t>(ul * f_n + r) % kXRing));
+  };
+
+  int prev_ul = -1, prev_f = 0;
+  for (int ul = 0; ul < n_mine; ++ul) {
+    for (int f = 0; f < f_n; ++f) {
+      const uint32_t di = static_cast<uint32_t>(ul * f_n + f);
+      mbar_wait(dy_full(di % kDyStages), (di / kDyStages) & 1);
+      const int r_hi = min(f + kHalf, f_n - 1);
+      for (int r = f == 0 ? 0 : f + kHalf; r <= r_hi; ++r) {
+        const uint32_t i = static_cast<uint32_t>(ul * f_n + r);
+        mbar_wait(x_full(i % kXRing), (i / kXRing) & 1);
+      }
+      __syncwarp();  // wgmma is .aligned: the warp issues it together
+      uint32_t xt[C::NA];
+#pragma unroll
+      for (int a = 0; a < C::NA; ++a) {
+        const int r = f + a0 + a - kHalf;
+        xt[a] = (a0 + a < KF && r >= 0 && r < f_n)
+                    ? my_x + (static_cast<uint32_t>(ul * f_n + r) % kXRing) * kTileBytes
+                    : zero_tile;
+      }
+      const uint32_t dt = dy_tiles + (di % kDyStages) * kTileBytes;
+#pragma unroll
+      for (int a = 0; a < C::NA; ++a) fence_regs(acc[a]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kTimeTile / 16; ++k) {
+        const uint64_t da = desc_sw128(dt + 2048 * k);
+#pragma unroll
+        for (int a = 0; a < C::NA; ++a)
+          wgmma_m64n64k16_bf16<1>(acc[a], da, desc_sw128(xt[a] + 2048 * k));
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int a = 0; a < C::NA; ++a) fence_regs(acc[a]);
+      if (prev_ul >= 0) {
+        wgmma_wait<1>();
+        release(prev_ul, prev_f);
+      }
+      prev_ul = ul;
+      prev_f = f;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < C::NA; ++a) fence_regs(acc[a]);
+
+  const int j = jg * C::J + jj;
+  if (j >= kt) return;
+  const int w4 = warp & 3;
+#pragma unroll
+  for (int a = 0; a < C::NA; ++a) {
+    if (a0 + a >= KF) continue;
+    float* out = partial + ((static_cast<long long>(split) * KF + a0 + a) * kt + j) *
+                               static_cast<long long>(ci_n) * co_n;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int ci = ci0 + 8 * c + 2 * (lane & 3);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int ci = ci0 + mi * 16 + g + 8 * h;
-        if (ci < ci_n) {
-          if (co < co_n) out[static_cast<long long>(ci) * co_n + co] = acc[mi][ni][2 * h];
-          if (co + 1 < co_n) out[static_cast<long long>(ci) * co_n + co + 1] = acc[mi][ni][2 * h + 1];
-        }
+        const int co = co0 + 16 * w4 + (lane >> 2) + 8 * h;
+        if (co < co_n && ci < ci_n)  // ci_n is a multiple of 8: ci + 1 < ci_n too
+          *reinterpret_cast<float2*>(out + static_cast<long long>(co) * ci_n + ci) =
+              make_float2(acc[a][4 * c + 2 * h], acc[a][4 * c + 2 * h + 1]);
       }
     }
   }
 }
 
-// out[co][ci][tap] = sum over the splits, in order, of partial[s][tap][ci][co]
+// K6's operand copy: src (B, C, F, T), float32 or bf16, -> dst (B, F, T, C)
+// bf16 (round to nearest even, as torch's cast), for any F T.  A block moves a 64 c x 64
+// t tile of one (b, f) through shared memory: reads along t, writes two
+// channels a thread, 128 contiguous bytes a warp.  It does none of the
+// product's arithmetic.
+template <typename T>
+__global__ void __launch_bounds__(256)
+conv_wgrad_channels_last_kernel(const T* __restrict__ src, uint32_t* __restrict__ dst, int c_n,
+                                int f_n, int t_n) {
+  __shared__ unsigned short tile[64][66];
+  const int t0 = blockIdx.x * 64;
+  const int c0 = blockIdx.y * 64;
+  const int bf = blockIdx.z;  // b * F + f
+  const int b = bf / f_n, f = bf % f_n;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int idx = tid + 256 * i;
+    const int c = idx >> 6, t = idx & 63;
+    float v = 0.0f;
+    if (c0 + c < c_n && t0 + t < t_n) {
+      const long long at = ((static_cast<long long>(b) * c_n + c0 + c) * f_n + f) * t_n + t0 + t;
+      if constexpr (sizeof(T) == 4)
+        v = src[at];
+      else
+        v = __uint_as_float(static_cast<uint32_t>(src[at]) << 16);
+    }
+    tile[c][t] = static_cast<unsigned short>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int idx = tid + 256 * i;
+    const int t = idx >> 5, cp = idx & 31;
+    if (t0 + t < t_n && c0 + 2 * cp < c_n)  // c_n is even
+      dst[((static_cast<long long>(bf) * t_n + t0 + t) * c_n + c0 + 2 * cp) / 2] =
+          static_cast<uint32_t>(tile[2 * cp][t]) | (static_cast<uint32_t>(tile[2 * cp + 1][t]) << 16);
+  }
+}
+
+// The same copy for bf16 input whose (f, t) planes are whole 16-byte words
+// (F T a multiple of 8): (B, C, F T) -> (B, F T, C) as a transpose of 64 c
+// x 128 (f, t) tiles, read 16 bytes a thread.
+__global__ void __launch_bounds__(256)
+conv_wgrad_channels_last_vec_kernel(const uint4* __restrict__ src, uint32_t* __restrict__ dst,
+                                    int c_n, int ft_n) {
+  __shared__ __align__(16) unsigned short tile[64][136];
+  const int p0 = blockIdx.x * 128;
+  const int c0 = blockIdx.y * 64;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = tid + 256 * i;
+    const int c = idx >> 4, q = idx & 15;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (c0 + c < c_n && p0 + 8 * q < ft_n)  // ft_n is a multiple of 8
+      v = src[((static_cast<long long>(b) * c_n + c0 + c) * ft_n + p0 + 8 * q) / 8];
+    *reinterpret_cast<uint4*>(&tile[c][8 * q]) = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int idx = tid + 256 * i;
+    const int p = idx >> 5, cp = idx & 31;
+    if (p0 + p < ft_n && c0 + 2 * cp < c_n)
+      dst[((static_cast<long long>(b) * ft_n + p0 + p) * c_n + c0 + 2 * cp) / 2] =
+          static_cast<uint32_t>(tile[2 * cp][p]) | (static_cast<uint32_t>(tile[2 * cp + 1][p]) << 16);
+  }
+}
+
+// out[co][ci][tap] = sum over the splits, in order, of partial[s][tap][co][ci]
 __global__ void conv_wgrad_final_kernel(const float* __restrict__ partial,
                                         float* __restrict__ out, int n_split, int n_taps,
                                         int ci_n, int co_n) {
@@ -242,27 +338,36 @@ __global__ void conv_wgrad_final_kernel(const float* __restrict__ partial,
   if (i >= n) return;
   float s = 0.0f;
   for (int sp = 0; sp < n_split; ++sp) s += partial[static_cast<long long>(sp) * n + i];
-  const int co = i % co_n;
-  const int ci = (i / co_n) % ci_n;
+  const int ci = i % ci_n;
+  const int co = (i / ci_n) % co_n;
   const int tap = i / (co_n * ci_n);
   out[(static_cast<long long>(co) * ci_n + ci) * n_taps + tap] = s;
 }
 
 template <int KF>
-cudaError_t launch_partial(const unsigned short* x, const unsigned short* dy, float* partial,
-                           int batch, int ci_n, int co_n, int f_n, int t_n, int kt, int dil,
-                           int n_split, cudaStream_t s) {
-  const int bytes = (KF + 1 + 2) * kTileWords * static_cast<int>(sizeof(uint32_t));
-  cudaError_t e = cudaFuncSetAttribute(conv_wgrad_partial_kernel<KF>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
+int launch_partial(const void* x, const void* dy, float* partial, int batch, int ci_n, int co_n,
+                   int f_n, int t_n, int kt, int dil, int n_split, cudaStream_t s) {
+  using C = Cfg<KF>;
+  // (C, T, F, B), innermost first; boxes of 64 channels x 64 frames
+  CUtensorMap x_map, dy_map;
+  const uint32_t box[4] = {kChanTile, kTimeTile, 1, 1};
+  const uint64_t tb = static_cast<uint64_t>(t_n) * 2;
+  int e = encode_bf16_4d(&x_map, x, {uint64_t(ci_n), uint64_t(t_n), uint64_t(f_n), uint64_t(batch)},
+                         {ci_n * 2ull, ci_n * tb, ci_n * tb * f_n}, box);
+  if (e != 0) return e < 0 ? e : -1000 - e;
+  e = encode_bf16_4d(&dy_map, dy, {uint64_t(co_n), uint64_t(t_n), uint64_t(f_n), uint64_t(batch)},
+                     {co_n * 2ull, co_n * tb, co_n * tb * f_n}, box);
+  if (e != 0) return e < 0 ? e : -1000 - e;
+  cudaError_t ce = cudaFuncSetAttribute(conv_wgrad_partial_kernel<KF>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   const int n_tt = (t_n + kTimeTile - 1) / kTimeTile;
   const int n_ci_tiles = (ci_n + kChanTile - 1) / kChanTile;
   const int n_co_tiles = (co_n + kChanTile - 1) / kChanTile;
-  dim3 grid(kt, n_split, n_ci_tiles * n_co_tiles);
-  conv_wgrad_partial_kernel<KF><<<grid, 32 * KF, bytes, s>>>(
-      x, dy, partial, batch, ci_n, co_n, f_n, t_n, kt, dil, n_tt, n_split, n_ci_tiles);
-  return cudaGetLastError();
+  dim3 grid((kt + C::J - 1) / C::J, n_split, n_ci_tiles * n_co_tiles);
+  conv_wgrad_partial_kernel<KF><<<grid, kThreads, C::kSmem, s>>>(
+      x_map, dy_map, partial, batch, ci_n, co_n, f_n, kt, dil, n_tt, n_split, n_ci_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -272,26 +377,52 @@ extern "C" {
 int conv_wgrad_max_kf() { return kMaxKf; }
 int conv_wgrad_time_tile() { return kTimeTile; }
 int conv_wgrad_chan_tile() { return kChanTile; }
+// Time taps one block owns for kernel height kf (the grid has ceil(kt / it)
+// blocks along the taps).
+int conv_wgrad_taps_per_block(int kf) { return kf <= 5 ? 2 : 1; }
 
-// K6.  x (B, Ci, F, T), dy (B, Co, F, T): bf16.  partial: (n_split, kf, kt,
-// Ci, Co) float32 scratch, n_split <= B * ceil(T / time tile).  out: (Co,
-// Ci, kf, kt) float32.  kf odd and <= conv_wgrad_max_kf(), kt odd.
-int conv_wgrad(const void* x, const void* dy, void* partial, void* out, int batch, int ci_n,
-               int co_n, int f_n, int t_n, int kf, int kt, int dil, int n_split,
-               void* stream) {
+// K6's operand copy: src (B, C, F, T), contiguous, float32 when is_f32 else
+// bf16 -> dst (B, F, T, C) bf16.  C a multiple of 8.
+int conv_wgrad_channels_last(const void* src, void* dst, int batch, int c_n, int f_n, int t_n,
+                             int is_f32, void* stream) {
+  if (c_n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((t_n + 63) / 64, (c_n + 63) / 64, batch * f_n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned short* xp = static_cast<const unsigned short*>(x);
-  const unsigned short* dyp = static_cast<const unsigned short*>(dy);
+  uint32_t* d = static_cast<uint32_t*>(dst);
+  const int ft_n = f_n * t_n;
+  if (!is_f32 && ft_n % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const dim3 vgrid((ft_n + 127) / 128, (c_n + 63) / 64, batch);
+    conv_wgrad_channels_last_vec_kernel<<<vgrid, 256, 0, s>>>(static_cast<const uint4*>(src), d,
+                                                              c_n, ft_n);
+  } else if (is_f32)
+    conv_wgrad_channels_last_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(src), d,
+                                                               c_n, f_n, t_n);
+  else
+    conv_wgrad_channels_last_kernel<unsigned short><<<grid, 256, 0, s>>>(
+        static_cast<const unsigned short*>(src), d, c_n, f_n, t_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6.  x (B, F, T, Ci), dy (B, F, T, Co): bf16, contiguous, 16-byte
+// aligned.  partial:
+// (n_split, kf, kt, Co, Ci) float32 scratch, n_split <= B * ceil(T / time
+// tile).  out: (Co, Ci, kf, kt) float32.  kf odd and <= conv_wgrad_max_kf(),
+// kt odd, Ci and Co multiples of 8.  Returns 0, a cudaError, -1 when
+// libcuda has no cuTensorMapEncodeTiled, or -1000 - the CUresult it returned.
+int conv_wgrad(const void* x, const void* dy, void* partial, void* out, int batch, int ci_n,
+               int co_n, int f_n, int t_n, int kf, int kt, int dil, int n_split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(partial);
-  cudaError_t e;
+  if (ci_n % 8 != 0 || co_n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  int e;
   switch (kf) {
-    case 1: e = launch_partial<1>(xp, dyp, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
-    case 3: e = launch_partial<3>(xp, dyp, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
-    case 5: e = launch_partial<5>(xp, dyp, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
-    case 7: e = launch_partial<7>(xp, dyp, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
+    case 1: e = launch_partial<1>(x, dy, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
+    case 3: e = launch_partial<3>(x, dy, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
+    case 5: e = launch_partial<5>(x, dy, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
+    case 7: e = launch_partial<7>(x, dy, pp, batch, ci_n, co_n, f_n, t_n, kt, dil, n_split, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != 0) return e;
   const int n_out = kf * kt * ci_n * co_n;
   conv_wgrad_final_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(
       pp, static_cast<float*>(out), n_split, kf * kt, ci_n, co_n);

@@ -36,9 +36,9 @@ from mod_extraction_tpu_torch.ops.conv import (
 
 #: Kernel launches per wrapper since the last `reset_launch_counts()`.
 LAUNCHES = {"conv_wgrad": 0}
-#: Blocks of the kernel that one SM holds at once (kf <= 5); with the SM
-#: count it fixes how many ways the contraction is split.
-BLOCKS_PER_SM = 2
+#: Blocks of the kernel that one SM holds at once; with the SM count it
+#: fixes how many ways the contraction is split.
+BLOCKS_PER_SM = 1
 
 _lib = None
 
@@ -63,6 +63,10 @@ def _load():
         for const in (lib.conv_wgrad_max_kf, lib.conv_wgrad_time_tile, lib.conv_wgrad_chan_tile):
             const.argtypes = []
             const.restype = i
+        lib.conv_wgrad_taps_per_block.argtypes = [i]
+        lib.conv_wgrad_taps_per_block.restype = i
+        lib.conv_wgrad_channels_last.argtypes = [p, p] + [i] * 5 + [p]
+        lib.conv_wgrad_channels_last.restype = i
         _lib = lib
     return _lib
 
@@ -136,6 +140,27 @@ def wgrad_splits(n_units: int, n_grid_other: int, sm_count: int) -> int:
     return max(1, min(n_units, (BLOCKS_PER_SM * sm_count) // n_grid_other))
 
 
+def channels_last_bf16(a: torch.Tensor) -> torch.Tensor:
+    """(B, C, F, T) -> a contiguous bf16 copy laid out (B, F, T, C): K6's
+    operand layout, in which TMA applies the time shift of a tap as a box
+    coordinate.  On the card a copy kernel of `csrc/conv_wgrad.cu` (float32
+    or bf16 in), elsewhere torch's copy."""
+    b, c, f, t = a.shape
+    out = torch.empty(b, f, t, c, dtype=torch.bfloat16, device=a.device)
+    if a.device.type != "cuda":
+        return out.copy_(a.permute(0, 2, 3, 1))
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        a = a.to(torch.float32)
+    a = a.contiguous()
+    rc = _load().conv_wgrad_channels_last(
+        a.data_ptr(), out.data_ptr(), b, c, f, t, int(a.dtype == torch.float32),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"conv_wgrad channels-last copy failed: cudaError {rc}")
+    return out
+
+
 def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch.Tensor:
     """Weight gradient of `conv2d_same(x, w, None, 1, dil)` with respect to
     its kernel: x (B, Ci, F, T) conv input, dy (B, Co, F, T) output
@@ -154,14 +179,16 @@ def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch
     lib = _load()
     if kf > lib.conv_wgrad_max_kf():
         raise ValueError(f"conv2d_wgrad_tapcat: kf={kf} exceeds the kernel's limit {lib.conv_wgrad_max_kf()}")
-    xb = x.detach().to(torch.bfloat16).contiguous()
-    gb = dy.detach().to(torch.bfloat16).contiguous()
+    # the one copy K6 makes: channels last, bf16
+    xb = channels_last_bf16(x.detach())
+    gb = channels_last_bf16(dy.detach())
     tile_c = lib.conv_wgrad_chan_tile()
     n_units = bsz * -(-t // lib.conv_wgrad_time_tile())
-    n_other = kt * -(-ci // tile_c) * -(-co // tile_c)
+    n_tap_blocks = -(-kt // lib.conv_wgrad_taps_per_block(kf))
+    n_other = n_tap_blocks * -(-ci // tile_c) * -(-co // tile_c)
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
     n_split = wgrad_splits(n_units, n_other, sm_count)
-    partial = torch.empty(n_split, kf, kt, ci, co, dtype=torch.float32, device=x.device)
+    partial = torch.empty(n_split, kf, kt, co, ci, dtype=torch.float32, device=x.device)
     out = torch.empty(co, ci, kf, kt, dtype=torch.float32, device=x.device)
     LAUNCHES["conv_wgrad"] += 1
     rc = lib.conv_wgrad(
@@ -170,7 +197,8 @@ def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"conv_wgrad kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"conv_wgrad kernel launch failed: code {rc} (a cudaError; -1: no "
+                           f"cuTensorMapEncodeTiled in libcuda; -1000 - CUresult: it refused)")
     return out
 
 

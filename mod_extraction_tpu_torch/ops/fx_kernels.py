@@ -3,9 +3,9 @@ around the hand-written CUDA kernels in `csrc/fx.cu`, their plain PyTorch
 versions, and launch counters.
 
 Replaces `mod_extraction_tpu/ops/pallas_fx.py` (`flanger_pallas` with
-`_flanger_kernel`, `phaser_pallas` with `_phaser_kernel`).  Both kernels are
-strict per-sample recurrences with few independent lanes, so they are
-latency-bound on the H100; `csrc/fx.cu` says what its design does about it.
+`_flanger_kernel`, `phaser_pallas` with `_phaser_kernel`).  Both are per-sample
+recurrences with few independent rows: K1 is walked sequentially, K2 (linear
+in its state) runs as a chunked affine scan; `csrc/fx.cu` says why.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
@@ -24,6 +24,9 @@ from mod_extraction_tpu_torch.ops import cuda_build
 
 #: Kernel launches per wrapper since the last `reset_launch_counts()`.
 LAUNCHES = {"flanger": 0, "phaser": 0}
+#: Samples per chunk of K2's affine scan (`csrc/fx.cu::kScanChunk`; the
+#: CPU model in `tests/test_torch_phaser_scan.py` reads it).
+PHASER_CHUNK = 128
 
 _lib = None
 
@@ -45,12 +48,19 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flanger_forward.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.flanger_forward.restype = i
-        lib.phaser_forward.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.phaser_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.phaser_forward.restype = i
+        lib.phaser_chunk_ok.argtypes = [i, i]
+        lib.phaser_chunk_ok.restype = i
+        lib.phaser_scratch_floats.argtypes = [i, i, i, i]
+        lib.phaser_scratch_floats.restype = ctypes.c_longlong
         lib.flanger_smem_bytes.argtypes = [i]
         lib.flanger_smem_bytes.restype = i
-        lib.phaser_max_stages.argtypes = []
-        lib.phaser_max_stages.restype = i
+        for const in (lib.phaser_max_stages, lib.phaser_scan_max_stages, lib.phaser_chunk):
+            const.argtypes = []
+            const.restype = i
+        if lib.phaser_chunk() != PHASER_CHUNK:
+            raise RuntimeError(f"csrc/fx.cu scans chunks of {lib.phaser_chunk()}, not {PHASER_CHUNK}")
         _lib = lib
     return _lib
 
@@ -172,27 +182,53 @@ def phaser_plain(x, g_all, feedback, mix, n_stages: int = 6):
     return (1.0 - mix) * x + mix * out
 
 
-def phaser(x, g_all, feedback, mix, n_stages: int = 6):
+def phaser(x, g_all, feedback, mix, n_stages: int = 6, chunk_states: bool = False,
+           chunk: int = PHASER_CHUNK):
     """K2 on CUDA tensors, the plain version on CPU tensors (see
-    `phaser_plain` for the contract)."""
+    `phaser_plain` for the contract).  On the card, up to
+    `phaser_scan_max_stages()` (8) stages run as a chunked affine scan over
+    time (three launches, counted as one), more as a sequential walk.
+
+    chunk_states (scan only, for diagnostics): also return the scan's
+    per-chunk transitions P (B*C, chunks, n+1, n+1), offsets q (B*C,
+    chunks, n+1) and entry states z (B*C, chunks, n+1), state order (s_1 ..
+    s_n, last).  chunk: the scan's chunk length; other than
+    `PHASER_CHUNK` only 32, 64, 256 and 512 at 6 stages, or 0 for the
+    sequential walk at any stage count (`scripts/bench_torch_fx.py` sweeps
+    them)."""
     if x.device.type == "cpu":
+        if chunk_states:
+            raise ValueError("chunk_states: the plain version has no chunks")
         return phaser_plain(x, g_all, feedback, mix, n_stages)
     _require_cuda(x, "phaser")
     b, c, t = x.shape
     lib = _load()
     if not 1 <= n_stages <= lib.phaser_max_stages():
         raise ValueError(f"n_stages={n_stages} outside 1..{lib.phaser_max_stages()}")
+    scan = n_stages <= lib.phaser_scan_max_stages() and chunk != 0
+    if scan and not lib.phaser_chunk_ok(n_stages, chunk):
+        raise ValueError(f"the scan is not built for chunks of {chunk} at {n_stages} stages")
+    if chunk_states and not scan:
+        raise ValueError(f"chunk_states: {n_stages} stages, chunk {chunk} take the walk, not the scan")
     xs = x.contiguous()
     gs = _lanes(g_all, x.shape)
     fb, mx = (_per_lane(p, b, c) for p in (feedback, mix))
     out = torch.empty_like(xs)
+    scratch = torch.empty(lib.phaser_scratch_floats(b * c, t, n_stages, chunk), dtype=torch.float32,
+                          device=x.device)
     LAUNCHES["phaser"] += 1
     _check(
         lib.phaser_forward(
             xs.data_ptr(), gs.data_ptr(), fb.data_ptr(), mx.data_ptr(),
-            out.data_ptr(), b * c, t, n_stages,
+            out.data_ptr(), scratch.data_ptr(), b * c, t, n_stages, chunk,
             torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "phaser",
     )
-    return out
+    if not chunk_states:
+        return out
+    z, n_chunks = n_stages + 1, -(-t // chunk)
+    pq, zs = scratch.split([b * c * n_chunks * z * (z + 1), b * c * n_chunks * z])
+    pq = pq.view(b * c, n_chunks, z * (z + 1))
+    p = pq[..., : z * z].view(b * c, n_chunks, z, z)
+    return out, p, pq[..., z * z :], zs.view(b * c, n_chunks, z)

@@ -5,7 +5,8 @@ the paper config: against its plain PyTorch version (1e-3 of the largest
 and its time beside the bound (operations over the card's dense bf16 tensor
 rate, bytes over its memory rate) and beside one library call that computes
 the same function (`aten.convolution_backward`, weight gradient only, bf16,
-dilated layers in the time-phase form).  The checks and the counting are
+dilated layers in the time-phase form).  Prints ptxas's registers and spills
+of `csrc/conv_wgrad.cu` first.  The checks and the counting are
 `chip_smoke.py`'s; this script runs them alone, kernel first and last, so a
 kernel change can be judged in half a minute.
 
@@ -26,6 +27,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from mod_extraction_tpu_torch.ops import conv_kernels as ck  # noqa: E402
+from mod_extraction_tpu_torch.ops import cuda_build  # noqa: E402
 
 
 def main() -> int:
@@ -40,7 +42,9 @@ def main() -> int:
     print(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ck.build(verbose=True)
+    print("[ptxas, csrc/conv_wgrad.cu]")
+    for line in cuda_build.ptxas_report("conv_wgrad.cu"):
+        print(f"  {line}")
     rng = np.random.default_rng(0)
 
     def rand(*shape):
@@ -48,7 +52,7 @@ def main() -> int:
         return torch.as_tensor(a, device="cuda").to(torch.bfloat16)
 
     cs.check_wgrad(ck, rand(2, 16, 6, 57), rand(2, 8, 6, 57), 4, "small B=2 ci=16 co=8 F=6 T=57 dil=4")
-    total = dict(ms=0.0, bound=0.0, lib=0.0)
+    total = dict(ms=0.0, bound=0.0, lib=0.0, copy=0.0)
     for f, dil in cs.WGRAD_LAYERS:
         x, g = (rand(args.batch, cs.TRUNK_CH, f, cs.N_FRAMES) for _ in range(2))
         label = f"B={args.batch} F={f} T={cs.N_FRAMES} dil={dil}"
@@ -64,13 +68,16 @@ def main() -> int:
         k_ms = cs.cuda_ms(kernel, args.reps)
         lib_ms = cs.cuda_ms(lib, args.reps)
         k_ms2 = cs.cuda_ms(kernel, args.reps)
-        print(f"[{label}] kernel_ms={k_ms:.3f} (again {k_ms2:.3f}) bound_ms={bound:.3f} (operations) "
-              f"tflops={n_ops / k_ms / 1e9:.1f} library_ms={lib_ms:.3f} plain_ms={plain_ms:.1f}", flush=True)
+        copy_ms = cs.cuda_ms(lambda: (ck.channels_last_bf16(x), ck.channels_last_bf16(g)), args.reps)
+        print(f"[{label}] kernel_ms={k_ms:.3f} (again {k_ms2:.3f}; of which the channels-last copies "
+              f"{copy_ms:.3f}) bound_ms={bound:.3f} (operations) tflops={n_ops / k_ms / 1e9:.1f} "
+              f"library_ms={lib_ms:.3f} plain_ms={plain_ms:.1f}", flush=True)
+        total["copy"] += copy_ms
         total["ms"] += min(k_ms, k_ms2)
         total["bound"] += bound
         total["lib"] += lib_ms
-    print(f"[five layers] kernel_ms={total['ms']:.3f} bound_ms={total['bound']:.3f} "
-          f"library_ms={total['lib']:.3f}")
+    print(f"[five layers] kernel_ms={total['ms']:.3f} (copies {total['copy']:.3f}) "
+          f"bound_ms={total['bound']:.3f} library_ms={total['lib']:.3f}")
     print(f"card: {card}")
     return 0
 

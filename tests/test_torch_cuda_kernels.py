@@ -70,6 +70,44 @@ def test_phaser_kernel_matches_plain():
     assert (out - ref).abs().max().item() <= TOL
 
 
+def _phaser_extremes(rng, b, t, fb, g_lo, g_hi):
+    """Inputs with g swept log-uniformly over [g_lo, g_hi] and a fixed
+    feedback: the corners of the scan's numerics."""
+    x = _u(rng, -0.9, 0.9, (b, 1, t))
+    lfo = 0.5 + 0.5 * np.sin(2 * np.pi * 0.9 * np.arange(t) / 44100.0 + rng.uniform(0, 6.3, (b, 1, 1)))
+    g = torch.as_tensor((g_lo * (g_hi / g_lo) ** lfo).astype(np.float32), device="cuda")
+    return x, g, torch.full((b, 1, 1), fb, device="cuda"), _u(rng, 0.2, 1.0, (b, 1, 1))
+
+
+# T around K2's scan chunk (128) and past a block's span (4096 samples);
+# n_stages 1, 6, 8 take the scan, 12 the sequential walk
+PHASER_T = [1, 127, 128, 129, 6000]
+PHASER_STAGES = [1, 6, 8, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_stages", PHASER_STAGES)
+@pytest.mark.parametrize("t", PHASER_T)
+def test_phaser_kernel_edges(t, n_stages):
+    """Feedback 0.7 and g from 0.001 to 32 (tan(0.49 pi)), one count a call."""
+    _need_cuda()
+    rng = np.random.default_rng(t * 100 + n_stages)
+    args = _phaser_extremes(rng, 5, t, 0.7, 0.001, 32.0)
+    fx_kernels.reset_launch_counts()
+    out = fx_kernels.phaser(*args, n_stages)
+    assert fx_kernels.LAUNCHES["phaser"] == 1
+    ref = fx_kernels.phaser_plain(*args, n_stages)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_phaser_kernel_same_bits_every_launch():
+    _need_cuda()
+    args = _phaser_extremes(np.random.default_rng(7), 4, 9000, 0.7, 0.001, 32.0)
+    assert torch.equal(fx_kernels.phaser(*args, 6), fx_kernels.phaser(*args, 6))
+
+
 @pytest.mark.cuda
 def test_render_batch_on_card_matches_cpu():
     """An interwoven batch rendered with the kernels on the card equals the
@@ -209,8 +247,18 @@ WGRAD_CASES = [
 ]
 
 
+# T already a multiple of the row alignment (no copy), one batch row and one
+# bin, time shifts longer than a 64-frame tile (16 x 6 = 96)
+WGRAD_EDGE_CASES = [
+    (2, 64, 64, 6, 352, 5, 13, 1),
+    (1, 64, 64, 1, 345, 5, 13, 2),
+    (2, 64, 64, 5, 352, 5, 13, 16),
+    (1, 8, 16, 3, 100, 3, 13, 16),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,f,t,kf,kt,dil", WGRAD_CASES)
+@pytest.mark.parametrize("b,ci,co,f,t,kf,kt,dil", WGRAD_CASES + WGRAD_EDGE_CASES)
 def test_conv_wgrad_kernel_matches_plain(b, ci, co, f, t, kf, kt, dil):
     """K6 against its plain version and the float32 reference, bit-identical
     from launch to launch (fixed-order two-pass sum), one count per call."""
@@ -229,6 +277,18 @@ def test_conv_wgrad_kernel_matches_plain(b, ci, co, f, t, kf, kt, dil):
     scale = ref.abs().max().item()
     assert (got - plain).abs().max().item() <= 1e-3 * scale
     assert (got - ref).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 128, 345), (3, 72, 5, 57), (1, 8, 1, 33)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_wgrad_channels_last_copy(shape, dtype):
+    """K6's operand copy on the card (16-byte tiles where F T allows, the
+    general tile otherwise) equals torch's permute and cast bit for bit."""
+    _need_cuda()
+    x = torch.randn(*shape, device="cuda").to(dtype)
+    got = conv_kernels.channels_last_bf16(x)
+    assert torch.equal(got, x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous())
 
 
 @pytest.mark.cuda

@@ -168,3 +168,41 @@ def test_model_with_kernel_wgrad_loads_the_shipped_weights():
         act_io_dtype="compute", stft_impl="dft",
     )
     assert model.wgrad_impl == "pallas" and len(model.convs) == 6
+
+
+def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
+    """The build cache key of a CUDA source changes with any header it
+    includes from `csrc/` (quoted includes, followed through headers), and
+    with nothing outside them, so a changed header never reuses a stale
+    library."""
+    from mod_extraction_tpu_torch.ops import cuda_build
+
+    (tmp_path / "a.cu").write_text('#include "h1.cuh"\n#include <cuda.h>\nint a;\n')
+    (tmp_path / "h1.cuh").write_text('#pragma once\n#include "h2.cuh"\n')
+    (tmp_path / "h2.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    first = cuda_build.source_digest("a.cu")
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert cuda_build.source_digest("a.cu") == first
+    (tmp_path / "h2.cuh").write_text("// v2\n")
+    assert cuda_build.source_digest("a.cu") != first
+
+
+def test_repo_kernel_sources_hash_their_shared_header(monkeypatch):
+    """`csrc/conv_wgrad.cu` includes `csrc/hopper.cuh`; its cache key reads
+    the header's bytes."""
+    from mod_extraction_tpu_torch.ops import cuda_build
+
+    assert '#include "hopper.cuh"' in (cuda_build.CSRC / "conv_wgrad.cu").read_text()
+    before = cuda_build.source_digest("conv_wgrad.cu")
+    fx_before = cuda_build.source_digest("fx.cu")
+    real = cuda_build.Path.read_bytes
+
+    def edited(path):
+        data = real(path)
+        return data + b"// edited\n" if path.name == "hopper.cuh" else data
+
+    monkeypatch.setattr(cuda_build.Path, "read_bytes", edited)
+    assert cuda_build.source_digest("conv_wgrad.cu") != before
+    assert cuda_build.source_digest("fx.cu") == fx_before  # fx.cu does not include it
