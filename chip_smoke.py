@@ -24,7 +24,12 @@ points at full width:
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
-with the same path on the CPU in float32 (plain kernel versions).
+with the same path on the CPU in float32 (plain kernel versions).  K1,
+which steps each row a warp's worth of samples at a time where its feedback
+allows, is also held at the edges of its steps (delay lines of 2 to 1764
+samples, T around a warp and a chunk, delays outside the line) and on both
+paths' batches against the sequential walk bit for bit, its per-row step
+counts against the plain count, and timed in turns with the walk.
 
 Prints the card's name and power limit, per-step times, a profile of one
 step of each path, and on the last two lines a JSON object of per-kernel
@@ -186,6 +191,7 @@ def check_kernels_small(fxk, rng) -> None:
         print(f"[K1 flanger d={d} n={b * c} T={t}] max_abs_err={err:.3e}")
         if not err <= KERNEL_TOL:
             fail(f"K1 d={d} disagrees with its plain version: {err}")
+    check_k1_edges(fxk, rng)
     x, g = u(-0.9, 0.9, (b, c, t)), u(0.001, 30.0, (b, c, t))
     fb, mix = u(0, 0.7, (b, 1, 1)), u(0.2, 1, (b, 1, 1))
     err = max_abs(fxk.phaser(x, g, fb, mix, 6), fxk.phaser_plain(x, g, fb, mix, 6))
@@ -193,6 +199,134 @@ def check_kernels_small(fxk, rng) -> None:
     if not err <= KERNEL_TOL:
         fail(f"K2 disagrees with its plain version: {err}")
     check_phaser_scan(fxk, rng)
+
+
+# K1 at the edges of its steps: delay lines shorter than a warp and the two
+# of the paths; T around a warp, around a chunk of the kernel's ring (512)
+# and past the ring (4096)
+K1_EDGE_D = (2, 17, 485, 1764)
+K1_EDGE_T = (1, 31, 32, 33, 511, 513, 6000)
+# what K1's row of the kernels line holds besides the common keys
+K1_EXTRA = ("steps_max", "steps_total", "cycles_per_step", "walk_ms", "waits")
+
+
+def k1_edge_delays(rng, t, d) -> np.ndarray:
+    """(rows, 1, T) float32 delays, one row per regime of K1's steps:
+    random over the line, exactly 0 and d, constant in (0, 1), integer 1, 2
+    and 31, an ulp below an integer, a sweep down near 0, and outside the
+    line: in (d, 2d), slightly below 0, over (-d, 2d)."""
+    f32 = np.float32
+    rows = [
+        rng.uniform(0, d, t), np.zeros(t), np.full(t, d), np.full(t, 0.37), np.full(t, 1.0),
+        np.full(t, 2.0), np.full(t, min(31.0, d - 0.5)),
+        np.full(t, np.nextafter(f32(3.0), f32(0))),
+        np.nextafter(rng.integers(1, d, t).astype(f32), f32(0)),
+        0.5 + 0.49 * np.sin(np.arange(t) / 7.0) ** 2 * min(d - 1, 8),
+        rng.uniform(d, 2 * d, t), rng.uniform(-0.01, 0.0, t), rng.uniform(-d, 2 * d, t),
+    ]
+    return np.stack(rows)[:, None, :].astype(f32)
+
+
+def check_k1_edges(fxk, rng) -> None:
+    """K1's stepped kernel at the edges of its steps: within KERNEL_TOL of
+    its plain version, the sequential walk's bits, and the step counts of
+    `flanger_step_counts`."""
+    worst, n_cases, plain_bits = 0.0, 0, 0
+    for d in K1_EDGE_D:
+        for t in K1_EDGE_T:
+            delay = torch.as_tensor(k1_edge_delays(rng, t, d), device="cuda")
+            b = delay.shape[0]
+
+            def u(lo, hi, shape):
+                return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32), device="cuda")
+
+            args = (u(-0.9, 0.9, (b, 1, t)), delay, u(0, 0.7, (b, 1, 1)), u(0.25, 1, (b, 1, 1)),
+                    u(0.25, 1, (b, 1, 1)), d)
+            out, stats = fxk.flanger(*args, step_counts=True)
+            ref = fxk.flanger_plain(*args)
+            err = max_abs(out, ref)
+            if not err <= KERNEL_TOL:
+                fail(f"K1 d={d} T={t} disagrees with its plain version: {err}")
+            if not torch.equal(out, fxk.flanger(*args, walk=True)):
+                fail(f"K1 d={d} T={t}: the steps do not give the walk's bits")
+            want = fxk.flanger_step_counts(delay, d, delay.shape)
+            if not torch.equal(stats[:, 0].cpu(), want):
+                fail(f"K1 d={d} T={t}: steps {stats[:, 0].tolist()}, the plain count {want.tolist()}")
+            worst, n_cases = max(worst, err), n_cases + 1
+            plain_bits += int(torch.equal(out, ref))
+    print(f"[K1 edges: d {K1_EDGE_D} x T {K1_EDGE_T}, {b} delay regimes each, delays outside [0, d] "
+          f"included] worst max_abs_err={worst:.3e}; walk's bits and the plain step counts in all "
+          f"{n_cases}; plain version's bits in {plain_bits}")
+
+
+def k1_args(batch, d: int) -> tuple:
+    """K1's arguments as the render makes them from a batch on the card."""
+    from mod_extraction_tpu_torch.train.render import flanger_delay_samples
+    from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
+
+    fx = batch["fx"]
+    mod_audio = linear_interpolate_last_dim(batch["mod_sig"], N_SAMPLES)[:, None, :]
+    return (batch["dry"], flanger_delay_samples(fx, mod_audio, SR), fx["feedback"][:, None, None],
+            fx["depth"][:, None, None], fx["mix"][:, None, None], d)
+
+
+def k1_path_batches() -> list:
+    """(label, K1 arguments) of the batches K1 is timed on: stage 1's last
+    train batch and stage 2's."""
+    from mod_extraction_tpu_torch.data.synthetic import (
+        batch_to_torch,
+        make_interwoven_batch,
+        make_synthetic_batch,
+    )
+
+    return [
+        (f"stage 1 batch, interwoven seed {N_TRAIN_STEPS}, d 1764",
+         k1_args(batch_to_torch(make_interwoven_batch(N_TRAIN_STEPS, BATCH, N_SAMPLES, SR)), 1764)),
+        (f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d 485",
+         k1_args(batch_to_torch(make_synthetic_batch(N_TBPTT_STEPS, BATCH, N_SAMPLES, SR, "flanger")), 485)),
+    ]
+
+
+def check_k1_path(fxk, args, label: str, plain: bool = True) -> dict:
+    """K1 at a path's shape: the stepped kernel against the walk (bits),
+    the plain version (KERNEL_TOL) and the plain step counts; the two
+    kernels timed in turns (walk, steps, steps, walk); the worst row's
+    steps and the cycles a step at the SM clock under load."""
+    x, delay, d = args[0], args[1], args[-1]
+    n_rows, t_len = x.shape[0] * x.shape[1], x.shape[2]
+    out, stats = fxk.flanger(*args, step_counts=True)
+    same = torch.equal(out, fxk.flanger(*args, walk=True))
+    steps = stats[:, 0].cpu()
+    want = fxk.flanger_step_counts(delay, d, x.shape)
+    res = dict(steps_max=int(steps.max()), steps_median=float(steps.float().median()),
+               steps_total=int(steps.sum()), waits=int(stats[:, 1].sum()), err=None, plain_ms=None,
+               bound_ms=4 * (3 * n_rows * t_len + 3 * n_rows) / HBM_BYTES_S * 1e3)
+    if plain:
+        ref = []
+        res["plain_ms"] = cuda_ms(lambda: ref.append(fxk.flanger_plain(*args)), 1)
+        res["err"] = max_abs(out, ref[0])
+        res["plain_bits"] = torch.equal(out, ref[0])
+    turns = {True: [], False: []}
+    for walk in (True, False, False, True):
+        turns[walk].append(cuda_ms_median(lambda: fxk.flanger(*args, walk=walk)))
+    res["ms"], res["walk_ms"] = float(np.mean(turns[False])), float(np.mean(turns[True]))
+    res["mhz"] = sm_clock_mhz(lambda: fxk.flanger(*args))
+    res["cycles_per_step"] = res["ms"] * 1e3 * res["mhz"] / res["steps_max"]
+    print(f"[K1 {label}] walk's bits: {same}; steps = plain count: {torch.equal(steps, want)}; "
+          f"max_abs_err={res['err'] if res['err'] is None else format(res['err'], '.3e')} "
+          f"(plain version's bits: {res.get('plain_bits')}); steps worst row {res['steps_max']} median "
+          f"{res['steps_median']:.0f} total {res['steps_total']} (walk: {t_len} a row); walker waits "
+          f"{res['waits']}; in turns ms={res['ms']:.4f} walk_ms={res['walk_ms']:.4f} "
+          f"({res['walk_ms'] / res['ms']:.1f}x); {res['cycles_per_step']:.1f} cycles a step at "
+          f"{res['mhz']:.0f} MHz; plain_ms={res['plain_ms']}")
+    if not same:
+        fail(f"K1 {label}: the steps do not give the walk's bits")
+    if not torch.equal(steps, want):
+        fail(f"K1 {label}: steps differ from the plain count in rows "
+             f"{torch.nonzero(steps != want).flatten().tolist()}")
+    if plain and not res["err"] <= KERNEL_TOL:
+        fail(f"K1 {label} disagrees with its plain version: {res['err']}")
+    return res
 
 
 # K2 at the edges of its chunked scan: T around the chunk and past a block's
@@ -330,12 +464,7 @@ def run_stage1(fxk, rng) -> list:
     from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
     from mod_extraction_tpu_torch.ops.fx import phaser_coefficients
     from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
-    from mod_extraction_tpu_torch.train.render import (
-        RenderConfig,
-        flanger_delay_samples,
-        phaser_params,
-    )
-    from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
+    from mod_extraction_tpu_torch.train.render import RenderConfig, phaser_params
 
     # -- kernels against their plain versions, small regimes
     check_kernels_small(fxk, rng)
@@ -402,41 +531,36 @@ def run_stage1(fxk, rng) -> list:
     # -- each kernel at the main path's shapes (the last train batch)
     tb = train_batches[-1]
     dry, fx = tb["dry"], tb["fx"]
-    mod_audio = linear_interpolate_last_dim(tb["mod_sig"], N_SAMPLES)[:, None, :]
-    fl_args = (
-        dry, flanger_delay_samples(fx, mod_audio, SR), fx["feedback"][:, None, None],
-        fx["depth"][:, None, None], fx["mix"][:, None, None], d,
+    n_lanes, t_len = dry.shape[0] * dry.shape[1], dry.shape[2]
+    k1 = check_k1_path(fxk, k1_args(tb, d), f"stage 1 batch, interwoven seed {N_TRAIN_STEPS}, d {d}")
+    k1_row = kernel_row(
+        "flanger_delay_line", "mod_extraction_tpu_torch/csrc/fx.cu",
+        "mod_extraction_tpu/ops/pallas_fx.py:45", launches["flanger"], k1["err"], k1["ms"],
+        k1["plain_ms"], 4 * (3 * n_lanes * t_len + 3 * n_lanes), 16 * n_lanes * t_len, None,
     )
+    k1_row.update({k: k1[k] for k in K1_EXTRA})
     pp = phaser_params(fx, SR)
     g, _ = phaser_coefficients(N_SAMPLES, SR, pp["rate_hz"], pp["depth"],
                                pp["centre_frequency_hz"], pp["phase"])
     ph_args = (dry, g[:, None, :], pp["feedback"][:, None, None], pp["mix"][:, None, None], 6)
-    n_lanes, t_len = dry.shape[0] * dry.shape[1], dry.shape[2]
-    specs = [
-        # name, launch key, wrapper, plain, args, replaces, bytes, f32 ops per sample
-        ("flanger_delay_line", "flanger", fxk.flanger, fxk.flanger_plain, fl_args,
-         "mod_extraction_tpu/ops/pallas_fx.py:45", 4 * (3 * n_lanes * t_len + 3 * n_lanes), 16),
-        ("phaser_allpass", "phaser", fxk.phaser, fxk.phaser_plain, ph_args,
-         "mod_extraction_tpu/ops/pallas_fx.py:156", 4 * (3 * n_lanes * t_len + 2 * n_lanes), 43),
-    ]
-    rows = []
-    for name, key, kern, plain, args, replaces, n_bytes, ops_per in specs:
-        out = kern(*args)
-        ms = cuda_ms_median(lambda: kern(*args))
-        ref_out = []
-        plain_ms = cuda_ms(lambda: ref_out.append(plain(*args)), 1)
-        err = max_abs(out, ref_out[0])
-        print(f"[{name} n={n_lanes} T={t_len}] max_abs_err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f}")
-        if not err <= KERNEL_TOL:
-            fail(f"{name} at the main-path shapes disagrees with its plain version: {err}")
-        rows.append(kernel_row(
-            name, "mod_extraction_tpu_torch/csrc/fx.cu", replaces, launches[key], err, ms,
-            plain_ms, n_bytes, ops_per * n_lanes * t_len, None,
-        ))
+    out = fxk.phaser(*ph_args)
+    ms = cuda_ms_median(lambda: fxk.phaser(*ph_args))
+    ref_out = []
+    plain_ms = cuda_ms(lambda: ref_out.append(fxk.phaser_plain(*ph_args)), 1)
+    err = max_abs(out, ref_out[0])
+    print(f"[phaser_allpass n={n_lanes} T={t_len}] max_abs_err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f}")
+    if not err <= KERNEL_TOL:
+        fail(f"phaser_allpass at the main-path shapes disagrees with its plain version: {err}")
     max_p, max_z, z_err = phaser_scan_numerics(fxk, ph_args[:4])
     print(f"[phaser_allpass scan on the path's data, chunk {fxk.PHASER_CHUNK}] max|P_c|={max_p:.4f} "
           f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
-    rows[1].update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err)
+    k2_row = kernel_row(
+        "phaser_allpass", "mod_extraction_tpu_torch/csrc/fx.cu", "mod_extraction_tpu/ops/pallas_fx.py:156",
+        launches["phaser"], err, ms, plain_ms, 4 * (3 * n_lanes * t_len + 2 * n_lanes),
+        43 * n_lanes * t_len, None,
+    )
+    k2_row.update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err)
+    rows = [k1_row, k2_row]
     # -- where one full-width train step spends the card's time
     profile_train_step(task, train_batches[1], "stage 1")
     return rows
@@ -739,7 +863,9 @@ def lstm_ops_bytes(b, t, hid, in_dim, out_ch, backward=False, save_states=False)
     return ops, 4 * floats
 
 
-def run_stage2(fxk, lk, rng) -> list:
+def run_stage2(fxk, lk, rng, k1_row: dict) -> list:
+    """Stage 2's checks and main path; adds K1 on stage 2's batch (d 485) to
+    `k1_row` under "d485"."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
     from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
     from mod_extraction_tpu_torch.models.lstm import lstm_init_state
@@ -902,6 +1028,14 @@ def run_stage2(fxk, lk, rng) -> list:
     else:
         print("[TBPTT val_step f32 r7 card vs CPU] not compared: the corners differ")
 
+    # -- K1 on the path's last train batch (d 485)
+    d = cfg.max_delay_samples
+    k1 = check_k1_path(fxk, k1_args(train_batches[-1], d),
+                       f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d {d}")
+    k1_row["d485"] = dict(launches=total["flanger"], max_abs_err=k1["err"], ms=k1["ms"],
+                          plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+                          **{k: k1[k] for k in K1_EXTRA})
+
     # -- each kernel at the main path's shapes, on the path's own data
     dry, wet, mod_sr, _, weights = task._prepare(val_batch)
     em = task.effect_model
@@ -1059,7 +1193,7 @@ def main() -> int:
     rows += run_stage1_kernel_wgrad(fxk, ck, rng)
     print(f"[stage 1 (wgrad=pallas) total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows += run_stage2(fxk, lk, rng)
+    rows += run_stage2(fxk, lk, rng, rows[0])
     print(f"[stage 2 total] {time.perf_counter() - t0:.1f} s")
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -9,31 +9,29 @@
 // What bounds them on the H100: the bytes they move (x and delay or g read
 // once, out written once: ~34 MB at (32, 88200)) take ~10 us at 3.35 TB/s.
 // Each is a per-sample recurrence over T = 88200 samples, and the main path
-// has only B*C = 32 of them against 132 SMs, so a sequential walk runs for
-// the length of one thread's dependency chain, about T times the latency of
-// one step, far above that bound.
+// has only B*C = 32 of them against 132 SMs, so what sets the time is the
+// length of a row's chain of dependent steps times the latency of one step,
+// far above that bound.
 //
-// K1 (and K2 above 8 stages): one warp per recurrence (one block of 32
-// threads).  The warp stages kChunk samples of the inputs from device
-// memory into shared memory with coalesced loads, lane 0 walks them (all
-// state in registers and, for K1, the circular delay line in shared memory,
-// which Hopper indexes directly; the TPU kernel's one-hot masked-sum read
-// existed only because Mosaic has no per-lane gather), and the warp writes
-// the outputs back coalesced.  So the walking lane never waits on device
-// memory, only on its own arithmetic and shared-memory reads.  Work that
-// does not depend on the recurrence (K2's G = g/(1+g)) is done by the whole
-// warp while staging.  K1's feedback read can be one sample back, so it
-// stays a walk.
+// K1 runs as many samples of a row at once as its feedback allows (see its
+// section): one warp walks the row in steps of up to 32 samples, with
+// nothing on its path but shared memory and its own arithmetic, while other
+// warps of the block stage the inputs and write the outputs.
 //
-// K2 up to 8 stages is a chunked affine scan over time (see its section).
+// K2 up to 8 stages is a chunked affine scan over time (see its section);
+// above 8 stages it keeps a sequential walk: one warp per recurrence stages
+// kChunk samples of the inputs in shared memory, lane 0 walks them, the
+// warp writes the outputs back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kChunk = 2048;  // samples staged per pass (8 KB per stream)
+constexpr int kChunk = 2048;  // samples a sequential walk stages per pass (8 KB per stream)
 
 // ---------------------------------------------------------------------------
 // K1: flanger / chorus delay line
@@ -41,23 +39,147 @@ constexpr int kChunk = 2048;  // samples staged per pass (8 KB per stream)
 //
 // Per recurrence r and sample t (reference: ops/fx.py::_flanger_scan):
 //   w      = t mod d
-//   read   = mod(w - delay[t] + d, d)          (float32, delay in [0, d))
+//   read   = mod((w - delay[t]) + d, d)         (float32, as jnp.mod: any delay)
 //   prev   = floor(read), frac = read - prev, next = (prev + 1) mod d
 //   interp = frac * buf[next] + (1 - frac) * buf[prev]
 //   buf[w] = x[t] + fb * interp
 //   wet    = x[t] + depth * interp
 //   out[t] = clip((1 - mix) * x[t] + mix * wet, -1, 1)
-__global__ void flanger_kernel(const float* __restrict__ x,
-                               const float* __restrict__ delay,
-                               const float* __restrict__ fb,
-                               const float* __restrict__ depth,
-                               const float* __restrict__ mix, float* __restrict__ out,
-                               int t_len, int d) {
+//
+// Steps.  Sample t reads slots prev and next.  Call a slot's age the
+// samples since it was last written: (w - slot) mod d, and d for slot w
+// itself (written d samples ago, about to be overwritten).  dep(t) is the
+// lesser age of the two slots.  Samples t0 .. t0 + s - 1 can run at once,
+// all reads before all writes, exactly when dep(t0 + j) > j for every
+// j < s: each then reads a value written before t0, or an old value that a
+// later sample of the same step overwrites.  The arithmetic of each sample
+// is unchanged, so a step gives the walk's bits.  dep is taken from the
+// same float32 prev/next the arithmetic uses, never from an idealised
+// delay, so rounding cannot let a sample read a slot its step writes.
+// dep <= d, so a step never writes a slot twice.  On the path's data most
+// rows take 32 samples a step (a chorus keeps hundreds of samples of delay;
+// a phaser row has delay 0, so dep = d - 1 or d); flanger rows whose delay
+// sweeps near 0 take short steps there (PERF.md).
+//
+// The block (flanger_step_kernel, 4 warps, one SM each of the 32 rows of
+// the path) for one row:
+//   warp 0, the walker: lanes j < s of a step read buf[prev], buf[next],
+//     form interp and write buf[(w + j) mod d] and interp; all lanes load
+//     the next step's inputs and its length meanwhile.  It touches only
+//     shared memory, by addresses it keeps in registers; its loop body has
+//     about 46 instructions and no branch but its back edge.
+//   warps 1-3, the producers (one per remaining scheduler): each stages
+//     whole chunks of kFlChunk samples into a ring of kFlRing chunks, a
+//     float4 record a sample (x, frac, &buf[prev], &buf[next]) and the
+//     length s(t) of a step that starts at the sample (the first j with
+//     dep(t + j) <= j, from ballots over the chunk and the next 32 samples;
+//     32 for a whole chunk at once where no dep is below 32), from
+//     coalesced loads of x and the delay.  So the walker's chain from one
+//     step start to the next is one shared load, not a ballot and a bit
+//     scan.  Before it restages a slot, a producer writes out the chunk the
+//     walker has finished there (mix, clip, coalesced stores).
+// mbarriers pass each chunk on: full (producer to walker) and walked
+// (walker back to the producers).  The walker counts the times it found
+// the next chunk not yet staged (stats).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/bench_torch_fx.py,
+// PERF.md): the walker takes about 120-150 cycles a step, and at 32
+// samples a step the producers fall behind it now and then.
+constexpr int kFlChunk = 512;
+constexpr int kFlRing = 8;
+constexpr int kFlRingSamples = kFlChunk * kFlRing;  // a power of two
+constexpr int kFlPerLane = kFlChunk / kWarp;
+constexpr int kFlWarps = 4;  // the walker (warp 0) and kFlWarps - 1 producers
+constexpr int kFlProducers = kFlWarps - 1;
+constexpr int kFlThreads = kFlWarps * kWarp;
+
+// Shared memory of flanger_step_kernel for a line of d samples: the ring
+// (a float4 record and an int step length per sample), 2 x kFlRing
+// mbarriers, the delay line and past it kWarp + 1 words where lanes
+// outside a step store.
+constexpr int flanger_step_smem(int d) {
+  return kFlRingSamples * (16 + 4) + 2 * kFlRing * 8 + (d + kWarp + 1) * 4;
+}
+
+// Shared-memory accesses by 32-bit shared address: the walker keeps its
+// addresses in registers (through generic pointers nvcc rebuilds them
+// from a special register at each access).
+__device__ __forceinline__ float lds32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ int lds32i(uint32_t a) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+
+// read = mod((w - delay) + d, d), reduced as torch.remainder and jnp.mod
+// reduce it (fmod, exact, then + d where negative), and its slots.  For an
+// integer d it lies in [0, d): (w - delay) + d is a multiple of d's ulp, so
+// fmod's negative results are at least an ulp below 0 and adding d stays
+// below d.  A NaN delay reads slot 0 (float-to-int of NaN gives 0).
+struct FlangerRead {
+  int prev, next;
+  float frac;
+};
+
+__device__ __forceinline__ float flanger_reduce(int w, float delay, float d_f) {
+  float rp = __fadd_rn(__fsub_rn(static_cast<float>(w), delay), d_f);
+  if (rp >= d_f && rp < 2.0f * d_f) {
+    rp = __fsub_rn(rp, d_f);  // fmod's result there, exact (Sterbenz)
+  } else if (!(rp >= 0.0f && rp < d_f)) {
+    rp = fmodf(rp, d_f);
+    if (rp < 0.0f) rp = __fadd_rn(rp, d_f);
+  }
+  return rp;
+}
+
+__device__ __forceinline__ FlangerRead flanger_read(int w, float delay, int d, float d_f) {
+  const float rp = flanger_reduce(w, delay, d_f);
+  const float pf = floorf(rp);
+  FlangerRead r;
+  r.prev = static_cast<int>(pf);
+  r.next = r.prev + 1 == d ? 0 : r.prev + 1;
+  r.frac = __fsub_rn(rp, pf);
+  return r;
+}
+
+// The plain version's float32 operations, each rounded on its own (no
+// contraction), so the walk and the steps give the same bits.
+__device__ __forceinline__ float flanger_interp(float frac, float bp, float bn) {
+  return __fadd_rn(__fmul_rn(frac, bn), __fmul_rn(__fsub_rn(1.0f, frac), bp));
+}
+
+__device__ __forceinline__ float flanger_mix(float xt, float interp, float depth, float mix) {
+  const float wet = __fadd_rn(xt, __fmul_rn(depth, interp));
+  const float y = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, mix), xt), __fmul_rn(mix, wet));
+  return fminf(fmaxf(y, -1.0f), 1.0f);
+}
+
+// The sequential walk, kept for the bench and the bit-identity check: one
+// warp per recurrence stages kChunk samples, lane 0 walks them.
+__global__ void __launch_bounds__(kWarp)
+flanger_walk_kernel(const float* __restrict__ x, const float* __restrict__ delay,
+                    const float* __restrict__ fb, const float* __restrict__ depth,
+                    const float* __restrict__ mix, float* __restrict__ out, int t_len, int d) {
   extern __shared__ float smem[];
-  float* buf = smem;              // [d] circular delay line
-  float* xs = buf + d;            // [kChunk] staged x
-  float* ds = xs + kChunk;        // [kChunk] staged delay
-  float* os = ds + kChunk;        // [kChunk] outputs of the chunk
+  float* buf = smem;        // [d] circular delay line
+  float* xs = buf + d;      // [kChunk] staged x
+  float* ds = xs + kChunk;  // [kChunk] staged delay
+  float* os = ds + kChunk;  // [kChunk] outputs of the chunk
 
   const int r = blockIdx.x;
   const int lane = threadIdx.x;
@@ -77,25 +199,230 @@ __global__ void flanger_kernel(const float* __restrict__ x,
     __syncwarp();
     if (lane == 0) {
       for (int i = 0; i < n; ++i) {
-        // same float32 operation order as the reference: (w - delay) + d
-        float rp = __fadd_rn(__fsub_rn(static_cast<float>(w), ds[i]), d_f);
-        if (rp >= d_f) rp = __fsub_rn(rp, d_f);  // exact (Sterbenz)
-        const float pf = floorf(rp);
-        const float frac = __fsub_rn(rp, pf);
-        const int prev = static_cast<int>(pf);
-        const int next = prev + 1 == d ? 0 : prev + 1;
-        const float interp = frac * buf[next] + (1.0f - frac) * buf[prev];
+        const FlangerRead rd = flanger_read(w, ds[i], d, d_f);
+        const float interp = flanger_interp(rd.frac, buf[rd.prev], buf[rd.next]);
         const float xt = xs[i];
-        buf[w] = xt + fb_r * interp;
-        const float wet = xt + depth_r * interp;
-        const float y = (1.0f - mix_r) * xt + mix_r * wet;
-        os[i] = fminf(fmaxf(y, -1.0f), 1.0f);
+        buf[w] = __fadd_rn(xt, __fmul_rn(fb_r, interp));
+        os[i] = flanger_mix(xt, interp, depth_r, mix_r);
         w = w + 1 == d ? 0 : w + 1;
       }
     }
     __syncwarp();
     for (int i = lane; i < n; i += kWarp) out[base + t0 + i] = os[i];
     __syncwarp();
+  }
+}
+
+// The samples a step starting at sample base + lane may run (1 .. 32),
+// from dep of samples base + lane (here) and base + 32 + lane (next); a
+// sample past the row has dep 0, so no step runs past the row.  The first
+// j with dep(t + j) <= j ends the step: lane t reads bit t + j of the
+// 64-sample mask of dep <= j.
+__device__ __forceinline__ int flanger_step_from(int dep_here, int dep_next, int lane) {
+  const int least = __reduce_min_sync(0xffffffffu, min(dep_here, dep_next));
+  if (least >= kWarp) return kWarp;
+  int s = kWarp;
+  for (int j = kWarp - 1; j >= least; --j) {  // no j below the least dep ends a step
+    const unsigned lo = __ballot_sync(0xffffffffu, dep_here <= j);
+    const unsigned hi = __ballot_sync(0xffffffffu, dep_next <= j);
+    const unsigned long long win = static_cast<unsigned long long>(hi) << 32 | lo;
+    if ((win >> (lane + j)) & 1) s = j;
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kFlThreads, 1)
+flanger_step_kernel(const float* __restrict__ x, const float* __restrict__ delay,
+                    const float* __restrict__ fb, const float* __restrict__ depth,
+                    const float* __restrict__ mix, float* __restrict__ out,
+                    int* __restrict__ stats, int t_len, int d, int fixed) {
+  // ring: per sample {x, frac (interp once walked), &buf[prev], &buf[next]}
+  extern __shared__ float4 fl_smem[];
+  float4* ring = fl_smem;                                           // [kFlRingSamples]
+  int* step_len = reinterpret_cast<int*>(ring + kFlRingSamples);    // [kFlRingSamples]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(step_len + kFlRingSamples);
+  float* buf = reinterpret_cast<float*>(bars + 2 * kFlRing);        // [d + kWarp + 1]
+  const uint32_t full0 = hopper::smem_u32(bars);
+  const uint32_t walked0 = full0 + 8 * kFlRing;
+  const uint32_t buf_a = hopper::smem_u32(buf);
+
+  const int r = blockIdx.x;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const size_t base = static_cast<size_t>(r) * t_len;
+  const int n_chunks = (t_len + kFlChunk - 1) / kFlChunk;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kFlRing; ++i) hopper::mbar_init(full0 + 8 * i, kWarp);
+    hopper::fence_barrier_init();
+  }
+  for (int i = threadIdx.x; i < d; i += kFlThreads) buf[i] = 0.0f;
+  __syncthreads();
+
+  if (warp == 0) {
+    // The steps run in stretches between checkpoints.  At a checkpoint the
+    // walker hands the chunks it has finished back to the producers and
+    // takes the chunks they have staged (waiting only for what the next
+    // step reads).  Within a stretch every sample a step reads is staged,
+    // and the loop body has no branch but its back edge.  Two chains run
+    // through it: the step starts (t, then the step length staged at t)
+    // and the delay line (read, four float32 operations, write).
+    const float fb_r = fb[r];
+    const uint32_t ring_a = hopper::smem_u32(ring), len_a = hopper::smem_u32(step_len);
+    const uint32_t buf_end = buf_a + 4 * d;
+    const uint32_t sink = buf_end + 4 * lane;  // where lanes outside a step store
+    int t = 0, steps = 0, waits = 0;
+    int staged = 0;  // samples [0, staged) are in the ring
+    int handed = 0;  // chunks handed back to the producers
+    auto take_chunk = [&](bool wait) {
+      const int c = staged / kFlChunk;
+      const uint32_t bar = full0 + 8 * (c % kFlRing);
+      const uint32_t parity = (c / kFlRing) & 1;
+      if (!hopper::mbar_test(bar, parity)) {
+        if (!wait) return false;
+        ++waits;
+        hopper::mbar_wait(bar, parity);
+      }
+      staged = min(staged + kFlChunk, t_len);
+      return true;
+    };
+    auto record = [&](int t0) { return ring_a + 16 * ((t0 + lane) & (kFlRingSamples - 1)); };
+    // lane j's record for the step at t0, inside the line past the row
+    auto inputs = [&](int t0, uint32_t at) {
+      float4 v = lds128(at);
+      if (t0 + lane >= t_len) v.z = v.w = __uint_as_float(buf_a);
+      return v;
+    };
+    auto step_at = [&](int t0) {
+      const int s_t = lds32i(len_a + 4 * (t0 & (kFlRingSamples - 1)));
+      return fixed > 0 ? min(fixed, t_len - t0) : s_t;
+    };
+    while (staged < min(kWarp, t_len)) take_chunk(true);
+    uint32_t cur_a = record(0);
+    float4 cur = inputs(0, cur_a);
+    int s = step_at(0);
+    uint32_t wa = buf_a + 4 * (lane % d);  // &buf[(t + lane) mod d]
+    while (t < t_len) {
+      while (handed < n_chunks && min((handed + 1) * kFlChunk, t_len) <= t) {
+        hopper::mbar_arrive(walked0 + 8 * (handed % kFlRing));
+        ++handed;
+      }
+      while (staged < min(t + 3 * kWarp, t_len)) take_chunk(true);
+      while (staged < t_len && take_chunk(false)) {
+      }
+      // t + s + 32 <= staged whenever t < end: the next step's inputs are staged
+      const int end = staged == t_len ? t_len : staged - 2 * kWarp;
+      do {
+        const int tn = t + s;
+        const uint32_t nxt_a = record(tn);
+        const float4 nxt = inputs(tn, nxt_a);
+        const int s_next = step_at(tn);
+        const float interp = flanger_interp(cur.y, lds32(__float_as_uint(cur.z)),
+                                            lds32(__float_as_uint(cur.w)));
+        const float val = __fadd_rn(cur.x, __fmul_rn(fb_r, interp));
+        const bool in_step = lane < s;
+        __syncwarp();  // every read of the step before any write
+        sts32(in_step ? wa : sink, val);
+        sts32((in_step ? cur_a : sink) + 4, interp);  // the record's frac becomes its interp
+        __syncwarp();
+        ++steps;
+        wa += 4 * s;
+        if (wa >= buf_end) wa -= 4 * d;
+        t = tn;
+        s = s_next;
+        cur = nxt;
+        cur_a = nxt_a;
+      } while (t < end);
+    }
+    while (handed < n_chunks) {
+      hopper::mbar_arrive(walked0 + 8 * (handed % kFlRing));
+      ++handed;
+    }
+    if (stats != nullptr && lane == 0) {
+      stats[2 * r] = steps;
+      stats[2 * r + 1] = waits;
+    }
+  } else {
+    // Producer p stages chunks p, p + kFlProducers, ...  The slot of chunk
+    // c held chunk c - kFlRing: once the walker has handed that chunk on,
+    // the producer first writes it out (mix, clip, coalesced stores), then
+    // stages chunk c.  Its loads of chunk c are in flight meanwhile.  The
+    // last kFlRing chunks are written out by the producers whose turn
+    // would have come next.
+    const int p = warp - 1;
+    const float d_f = static_cast<float>(d);
+    const float depth_r = depth[r], mix_r = mix[r];
+    const int stride_w = kWarp % d;  // w advances by this from one of a lane's samples to the next
+    for (int c = p; c < n_chunks + kFlRing; c += kFlProducers) {
+      const int slot = c % kFlRing;
+      const int c0 = c * kFlChunk;
+      // the chunk's samples and the next kWarp, whose dep the chunk's last
+      // steps need
+      float xv[kFlPerLane], dv[kFlPerLane + 1];
+#pragma unroll
+      for (int k = 0; k <= kFlPerLane; ++k) {
+        const int u = c0 + k * kWarp + lane;
+        if (k < kFlPerLane) xv[k] = u < t_len ? x[base + u] : 0.0f;
+        dv[k] = u < t_len ? delay[base + u] : 0.0f;
+      }
+      if (c >= kFlRing) {  // write out chunk c - kFlRing
+        hopper::mbar_wait(walked0 + 8 * slot, ((c / kFlRing) & 1) ^ 1);
+        const int e0 = c0 - kFlRing * kFlChunk;
+#pragma unroll
+        for (int k = 0; k < kFlPerLane; ++k) {
+          const int i = k * kWarp + lane;
+          const float2 v = *reinterpret_cast<const float2*>(ring + slot * kFlChunk + i);
+          if (e0 + i < t_len) out[base + e0 + i] = flanger_mix(v.x, v.y, depth_r, mix_r);
+        }
+      }
+      if (c >= n_chunks) continue;
+      // read positions, with fmod's result taken where (w - delay) + d lies
+      // in [0, 2d) (the path's delays) and fmod itself elsewhere
+      float rp[kFlPerLane + 1];
+      int wk[kFlPerLane + 1];
+      bool off = false;
+      int w = (c0 + lane) % d;
+#pragma unroll
+      for (int k = 0; k <= kFlPerLane; ++k) {
+        wk[k] = w;
+        const float a = __fadd_rn(__fsub_rn(static_cast<float>(w), dv[k]), d_f);
+        rp[k] = a >= d_f ? __fsub_rn(a, d_f) : a;
+        off |= !(rp[k] >= 0.0f && rp[k] < d_f);
+        w += stride_w;
+        if (w >= d) w -= d;
+      }
+      if (__any_sync(0xffffffffu, off)) {
+#pragma unroll
+        for (int k = 0; k <= kFlPerLane; ++k) rp[k] = flanger_reduce(wk[k], dv[k], d_f);
+      }
+      float fr[kFlPerLane];
+      uint32_t pa[kFlPerLane], na[kFlPerLane];
+      int dep[kFlPerLane + 1];
+      int least = kWarp;
+#pragma unroll
+      for (int k = 0; k <= kFlPerLane; ++k) {
+        const float pf = floorf(rp[k]);
+        const int prev = static_cast<int>(pf);
+        const int next = prev + 1 == d ? 0 : prev + 1;
+        int ap = wk[k] - prev, an = wk[k] - next;  // the slots' ages
+        if (ap <= 0) ap += d;
+        if (an <= 0) an += d;
+        dep[k] = c0 + k * kWarp + lane < t_len ? min(min(ap, an), kWarp) : 0;
+        least = min(least, dep[k]);
+        if (k < kFlPerLane) {
+          fr[k] = __fsub_rn(rp[k], pf);
+          pa[k] = buf_a + 4 * prev;
+          na[k] = buf_a + 4 * next;
+        }
+      }
+      const bool all_whole = __reduce_min_sync(0xffffffffu, least) >= kWarp;
+#pragma unroll
+      for (int k = 0; k < kFlPerLane; ++k) {
+        const int at = slot * kFlChunk + k * kWarp + lane;
+        ring[at] = make_float4(xv[k], fr[k], __uint_as_float(pa[k]), __uint_as_float(na[k]));
+        step_len[at] = all_whole ? kWarp : flanger_step_from(dep[k], dep[k + 1], lane);
+      }
+      hopper::mbar_arrive(full0 + 8 * slot);
+    }
   }
 }
 
@@ -426,10 +753,9 @@ __global__ void phaser_walk_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// Shared memory K1 needs for a delay line of d samples.
-int flanger_smem_bytes(int d) {
-  return static_cast<int>((d + 3 * kChunk) * sizeof(float));
-}
+// Shared memory K1's stepped kernel needs for a delay line of d samples
+// (the walk needs less).
+int flanger_smem_bytes(int d) { return flanger_step_smem(d); }
 
 int phaser_max_stages() { return kMaxStages; }
 int phaser_scan_max_stages() { return kScanMaxStages; }
@@ -449,18 +775,35 @@ long long phaser_scratch_floats(int n, int t, int n_stages, int chunk) {
   return static_cast<long long>(n) * n_chunks * (n_stages + 1) * (n_stages + 3);
 }
 
-// x, delay, out: (n, t) float32, contiguous; fb, depth, mix: (n,) float32.
+// x, delay, out: (n, t) float32, contiguous; fb, depth, mix: (n,) float32;
+// 2 <= d, flanger_smem_bytes(d) within a block's shared memory.  walk != 0:
+// the sequential walk.  Else the stepped kernel; stats (or null): (n, 2)
+// int32, per row the steps taken and the times the walker found the next
+// chunk not yet staged; fixed (bench only; 0 < fixed <= min(32, d)): every
+// step runs fixed samples whatever the delay allows, which times the
+// staging apart from the steps and leaves the output wrong.
 int flanger_forward(const float* x, const float* delay, const float* fb,
-                    const float* depth, const float* mix, float* out, int n,
-                    int t, int d, void* stream) {
-  const int smem = flanger_smem_bytes(d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flanger_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+                    const float* depth, const float* mix, float* out, int* stats, int n,
+                    int t, int d, int walk, int fixed, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 2 || d > 0xffff || fixed < 0 || fixed > kWarp || fixed > d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (walk) {
+    const int smem = (d + 3 * kChunk) * static_cast<int>(sizeof(float));
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(flanger_walk_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    flanger_walk_kernel<<<n, kWarp, smem, s>>>(x, delay, fb, depth, mix, out, t, d);
+    return static_cast<int>(cudaGetLastError());
   }
-  flanger_kernel<<<n, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, delay, fb, depth, mix, out, t, d);
+  const int smem = flanger_step_smem(d);
+  cudaError_t e = cudaFuncSetAttribute(flanger_step_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flanger_step_kernel<<<n, kFlThreads, smem, s>>>(x, delay, fb, depth, mix, out, stats, t, d,
+                                                  fixed);
   return static_cast<int>(cudaGetLastError());
 }
 

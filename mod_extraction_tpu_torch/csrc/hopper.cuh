@@ -66,6 +66,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// True once the phase of parity `parity` has completed (as mbar_wait);
+// returns at once either way.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // One box of a 4-D tensor map into shared memory; completion is reported
 // to `bar` in bytes.  Coordinates are signed, innermost first; elements
 // outside the tensor read as zero.

@@ -4,8 +4,9 @@ versions, and launch counters.
 
 Replaces `mod_extraction_tpu/ops/pallas_fx.py` (`flanger_pallas` with
 `_flanger_kernel`, `phaser_pallas` with `_phaser_kernel`).  Both are per-sample
-recurrences with few independent rows: K1 is walked sequentially, K2 (linear
-in its state) runs as a chunked affine scan; `csrc/fx.cu` says why.
+recurrences with few independent rows: K1 runs a warp's worth of samples at
+once wherever its feedback allows, K2 (linear in its state) runs as a
+chunked affine scan; `csrc/fx.cu` says why.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
@@ -27,6 +28,8 @@ LAUNCHES = {"flanger": 0, "phaser": 0}
 #: Samples per chunk of K2's affine scan (`csrc/fx.cu::kScanChunk`; the
 #: CPU model in `tests/test_torch_phaser_scan.py` reads it).
 PHASER_CHUNK = 128
+#: Samples one step of K1 may run at once: a warp (`csrc/fx.cu::kWarp`).
+FLANGER_STEP = 32
 
 _lib = None
 
@@ -46,7 +49,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flanger_forward.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.flanger_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.flanger_forward.restype = i
         lib.phaser_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.phaser_forward.restype = i
@@ -92,21 +95,29 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _flanger_read(delay_samples, max_delay_samples: int):
+    """K1's fractional read position for every sample of (..., T) delays:
+    (prev, next, frac), prev/next int64 slots of the delay line.
+
+    read = mod((t mod d) - delay + d, d) in float32, reduced as
+    `torch.remainder` and `jnp.mod` reduce it, so a delay outside [0, d]
+    reads the slot the JAX package reads."""
+    d = int(max_delay_samples)
+    t = delay_samples.shape[-1]
+    write_idx = torch.arange(t, device=delay_samples.device) % d
+    read_idx = torch.remainder(write_idx.to(torch.float32) - delay_samples + d, d)
+    prev_f = torch.floor(read_idx)
+    prev_idx = prev_f.to(torch.int64)
+    return prev_idx, torch.remainder(prev_idx + 1, d), read_idx - prev_f
+
+
 def flanger_plain(x, delay_samples, feedback, depth, mix, max_delay_samples: int):
     """Plain PyTorch version of K1 (the `_flanger_scan` contract): x / delay
     (B, C, T); feedback / depth / mix (B, 1, 1); returns the dry/wet mixed,
     clipped (B, C, T).  A Python loop over time."""
     b, c, t = x.shape
     d = int(max_delay_samples)
-    delay_samples = delay_samples.expand(b, c, t)
-    write_idx = torch.arange(t, device=x.device) % d
-    read_idx = torch.remainder(
-        write_idx.to(torch.float32) - delay_samples + d, d
-    )
-    prev_f = torch.floor(read_idx)
-    frac = read_idx - prev_f
-    prev_idx = prev_f.to(torch.int64)
-    next_idx = torch.remainder(prev_idx + 1, d)
+    prev_idx, next_idx, frac = _flanger_read(delay_samples.expand(b, c, t), d)
     fb = feedback[..., 0]
     dp = depth[..., 0]
     buf = torch.zeros(b, c, d, dtype=torch.float32, device=x.device)
@@ -123,16 +134,74 @@ def flanger_plain(x, delay_samples, feedback, depth, mix, max_delay_samples: int
     return torch.clamp(out, -1.0, 1.0)
 
 
-def flanger(x, delay_samples, feedback, depth, mix, max_delay_samples: int):
+def flanger_step_counts(delay_samples, max_delay_samples: int, shape) -> torch.Tensor:
+    """The plain version of K1's step counts: per row of the (B, C, T)
+    `shape`, the steps the card's kernel takes, (B*C,) int32 on the CPU.
+
+    A step runs samples t0 .. t0 + s - 1 at once, reads before writes.  It
+    may hold sample t0 + j only if both slots that sample reads were last
+    written before t0: dep(t) = min(age(prev), age(next)) > j, where a
+    slot's age is the samples since it was last written (d for the slot
+    about to be overwritten).  Steps are greedy and at most
+    `FLANGER_STEP` samples."""
+    b, c, t = shape
+    d = int(max_delay_samples)
+    delay = delay_samples.detach().to("cpu", torch.float32).expand(b, c, t).reshape(b * c, t)
+    prev_idx, next_idx, _ = _flanger_read(delay, d)
+    w = torch.arange(t) % d
+
+    def age(slot):
+        a = w - slot
+        return torch.where(a <= 0, a + d, a)
+
+    dep = torch.minimum(age(prev_idx), age(next_idx)).clamp(max=FLANGER_STEP)
+    dep = torch.nn.functional.pad(dep, (0, FLANGER_STEP))  # past the row: no sample
+    step = torch.full((b * c, t), FLANGER_STEP, dtype=torch.int64)
+    for j in reversed(range(FLANGER_STEP)):
+        step = torch.where(dep[:, j : j + t] <= j, j, step)
+    pos = torch.zeros(b * c, dtype=torch.int64)
+    counts = torch.zeros(b * c, dtype=torch.int32)
+    rows = torch.arange(b * c)
+    while True:
+        live = pos < t
+        if not live.any():
+            return counts
+        counts += live.to(torch.int32)
+        pos = torch.where(live, pos + step[rows, pos.clamp(max=t - 1)], pos)
+
+
+def flanger(x, delay_samples, feedback, depth, mix, max_delay_samples: int, *,
+            walk: bool = False, step_counts: bool = False, fixed_step: int = 0):
     """K1 on CUDA tensors, the plain version on CPU tensors (see
-    `flanger_plain` for the contract)."""
+    `flanger_plain` for the contract).  On the card one warp steps each row
+    up to `FLANGER_STEP` samples at a time, as far as the feedback allows
+    (`csrc/fx.cu`), and gives the sequential walk's bits.
+
+    walk: the sequential walk instead (one lane walks every sample); for
+    the bench and the bit-identity check only.
+    step_counts: also return (B*C, 2) int32: per row the steps taken and
+    the times the walker found the next chunk of inputs not yet staged.  On
+    CPU tensors: `flanger_step_counts` and no waits.
+    fixed_step (bench only, 1 .. min(32, d)): every step runs this many
+    samples whatever the delay allows, to time the staging apart from the
+    steps; the output is then wrong."""
+    if walk and (step_counts or fixed_step):
+        raise ValueError("the sequential walk takes no steps to count or fix")
+    d = int(max_delay_samples)
     if x.device.type == "cpu":
-        return flanger_plain(x, delay_samples, feedback, depth, mix, max_delay_samples)
+        if fixed_step:
+            raise ValueError("fixed_step: only the card's kernel takes steps")
+        out = flanger_plain(x, delay_samples, feedback, depth, mix, d)
+        if not step_counts:
+            return out
+        steps = flanger_step_counts(delay_samples, d, x.shape)
+        return out, torch.stack([steps, torch.zeros_like(steps)], 1)
     _require_cuda(x, "flanger")
     b, c, t = x.shape
-    d = int(max_delay_samples)
     if d < 2:
         raise ValueError("delay line must hold at least 2 samples")
+    if not 0 <= fixed_step <= min(FLANGER_STEP, d):
+        raise ValueError(f"fixed_step={fixed_step} outside 0..{min(FLANGER_STEP, d)}")
     lib = _load()
     if lib.flanger_smem_bytes(d) > 232448:
         raise ValueError(f"delay line of {d} samples exceeds a block's shared memory")
@@ -140,16 +209,18 @@ def flanger(x, delay_samples, feedback, depth, mix, max_delay_samples: int):
     ds = _lanes(delay_samples, x.shape)
     fb, dp, mx = (_per_lane(p, b, c) for p in (feedback, depth, mix))
     out = torch.empty_like(xs)
+    stats = torch.zeros(b * c, 2, dtype=torch.int32, device=x.device) if step_counts else None
     LAUNCHES["flanger"] += 1
     _check(
         lib.flanger_forward(
             xs.data_ptr(), ds.data_ptr(), fb.data_ptr(), dp.data_ptr(),
-            mx.data_ptr(), out.data_ptr(), b * c, t, d,
+            mx.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+            b * c, t, d, int(walk), int(fixed_step),
             torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "flanger",
     )
-    return out
+    return (out, stats) if step_counts else out
 
 
 # ---------------------------------------------------------------------------

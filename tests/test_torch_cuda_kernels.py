@@ -57,6 +57,29 @@ def test_flanger_kernel_matches_plain(d, lo):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 33, 513, 5000])
+@pytest.mark.parametrize("d", [2, 17, 485, 1764])
+def test_flanger_steps_are_the_walk(d, t):
+    """The stepped kernel against the sequential walk (bit for bit), the
+    plain version (1e-4) and the plain step counts, with a row per regime of
+    the steps: random over the line, delay 0, d, 0.37, an integer, in
+    (d, 2d) and slightly below 0."""
+    _need_cuda()
+    rng = np.random.default_rng(d + t)
+    rows = [rng.uniform(0, d, t), np.zeros(t), np.full(t, d), np.full(t, 0.37),
+            np.full(t, min(5.0, d - 0.5)), rng.uniform(d, 2 * d, t), rng.uniform(-0.01, 0, t)]
+    delay = torch.as_tensor(np.stack(rows)[:, None].astype(np.float32), device="cuda")
+    b = delay.shape[0]
+    x = _u(rng, -0.9, 0.9, (b, 1, t))
+    fb, depth, mix = (_u(rng, a, 1.0, (b, 1, 1)) for a in (0.0, 0.25, 0.25))
+    out, stats = fx_kernels.flanger(x, delay, 0.7 * fb, depth, mix, d, step_counts=True)
+    assert torch.equal(out, fx_kernels.flanger(x, delay, 0.7 * fb, depth, mix, d, walk=True))
+    ref = fx_kernels.flanger_plain(x, delay, 0.7 * fb, depth, mix, d)
+    assert (out - ref).abs().max().item() <= TOL
+    assert torch.equal(stats[:, 0].cpu(), fx_kernels.flanger_step_counts(delay, d, delay.shape))
+
+
+@pytest.mark.cuda
 def test_phaser_kernel_matches_plain():
     _need_cuda()
     rng = np.random.default_rng(1)

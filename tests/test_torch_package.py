@@ -190,13 +190,13 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
 
 
 def test_repo_kernel_sources_hash_their_shared_header(monkeypatch):
-    """`csrc/conv_wgrad.cu` includes `csrc/hopper.cuh`; its cache key reads
-    the header's bytes."""
+    """`csrc/conv_wgrad.cu` and `csrc/fx.cu` include `csrc/hopper.cuh`; their
+    cache keys read the header's bytes, `csrc/lstm.cu`'s does not."""
     from mod_extraction_tpu_torch.ops import cuda_build
 
-    assert '#include "hopper.cuh"' in (cuda_build.CSRC / "conv_wgrad.cu").read_text()
-    before = cuda_build.source_digest("conv_wgrad.cu")
-    fx_before = cuda_build.source_digest("fx.cu")
+    for src in ("conv_wgrad.cu", "fx.cu"):
+        assert '#include "hopper.cuh"' in (cuda_build.CSRC / src).read_text()
+    before = {src: cuda_build.source_digest(src) for src in ("conv_wgrad.cu", "fx.cu", "lstm.cu")}
     real = cuda_build.Path.read_bytes
 
     def edited(path):
@@ -204,5 +204,6 @@ def test_repo_kernel_sources_hash_their_shared_header(monkeypatch):
         return data + b"// edited\n" if path.name == "hopper.cuh" else data
 
     monkeypatch.setattr(cuda_build.Path, "read_bytes", edited)
-    assert cuda_build.source_digest("conv_wgrad.cu") != before
-    assert cuda_build.source_digest("fx.cu") == fx_before  # fx.cu does not include it
+    assert cuda_build.source_digest("conv_wgrad.cu") != before["conv_wgrad.cu"]
+    assert cuda_build.source_digest("fx.cu") != before["fx.cu"]
+    assert cuda_build.source_digest("lstm.cu") == before["lstm.cu"]  # lstm.cu does not include it
