@@ -20,7 +20,14 @@ points at full width:
   `configs/train_em_sim_flanger_r7.yml`: the shipped LSTM-64 conditioned on
   the frozen r7 extractor (bf16), flanger batches of 32, a 1024-sample
   warm-up and 83 chunk updates of 1024 samples per step, a `val_step` and
-  a few `train_step`s (kernels K1, K3, K4, K5).
+  a few `train_step`s (kernels K1, K3, K4, K5);
+* serving, the streaming processor of `export/streaming.py`: the shipped
+  egfx LSTM-64 and sim_chorus LSTM-160 effect models, mono and stereo,
+  driven over random buffers of 1-2048 samples (K3, through its
+  `torch.library` operator), held against one full call, against the CPU,
+  and through the `torch.export` artifact reloaded on the card; K3 timed
+  per buffer beside its latency floor, and the real-time factors;
+* `bench_torch.py`'s two measurements (stage 1 and TBPTT) at batch 32.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -42,7 +49,6 @@ from __future__ import annotations
 
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -52,30 +58,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent
-R7 = ROOT / "models" / "lfo_2dcnn_io_sa_25_25_no_ch_ln__interwoven_idmt_all_live_r7.npz"
-LSTM64 = ROOT / "models" / "lstm_64__lfo_2dcnn_r7__sim_flanger.npz"
-SR, N_SAMPLES, BATCH = 44100.0, 88200, 32
-N_TRAIN_STEPS = 4  # timed, after one warm-up step
-LOSSES = {"l1": 1.0, "fdl1": 5.0, "sdl1": 10.0, "mse": 0.0}
-PAPER = dict(
-    in_ch=2, n_samples=N_SAMPLES, sr=SR, n_fft=1024, hop_len=256, n_mels=256,
-    kernel_size=(5, 13), out_channels=(64,) * 6,
-    temp_dilations=(1, 1, 2, 4, 8, 16), pool_size=(2, 1),
-    freq_mask_amount=0.25, time_mask_amount=0.25,
+import bench_torch
+from bench_torch import LOSSES, LSTM64, N_SAMPLES, PAPER, R7, SR, TBPTT
+from mod_extraction_tpu_torch.utils.timing import (
+    card_line,
+    cuda_ms,
+    cuda_ms_median,
+    cuda_ms_queued,
+    device_ms_by_kernel,
+    profile_step,
 )
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 32
+N_TRAIN_STEPS = 4  # timed, after one warm-up step
 KERNEL_TOL = 1e-4  # max-abs, as scripts/tpu_parity_gate.py holds the TPU kernels
 GRAD_REL = 5e-4  # gradient leaves, relative to the leaf's largest magnitude (same source)
 LOSS_ATOL, LOSS_RTOL = 1e-6, 1e-4  # LSTM training loss (same source)
 VAL_RTOL = 1e-3  # float32 val metrics, card vs CPU (reordered float32 sums)
-# stage 2 (configs/train_em_sim_flanger_r7.yml; data and optimizer as bench.py's
-# stage-2 bench)
-TBPTT_CHUNK = 1024
-TBPTT = dict(
-    warmup_n_samples=TBPTT_CHUNK, step_n_samples=TBPTT_CHUNK, model_smooth_n_frames=8,
-    should_stretch=True, max_n_corners=16, discard_invalid_lfos=True,
-    loss_dict={"l1": 1.0, "esr": 0.0, "dc": 0.0},
-)
+# stage 2 (configs/train_em_sim_flanger_r7.yml, as bench_torch.py's --tbptt
+# sets it up)
+TBPTT_CHUNK = TBPTT["step_n_samples"]
 N_TBPTT_STEPS = 2  # timed, after one warm-up step
 # LSTM parameters after one TBPTT step (84 AdamW updates), card vs CPU: the
 # sound runs on the H100 read 1.937e-7; a control step whose gate-bias
@@ -94,62 +97,26 @@ WGRAD_PLAIN_REL, WGRAD_F32_REL = 1e-3, 2e-2
 WGRAD_LAYERS = ((128, 1), (64, 2), (32, 4), (16, 8), (8, 16))
 N_FRAMES, TRUNK_CH, KF, KT = N_SAMPLES // 256 + 1, 64, 5, 13
 N_WGRAD_STEPS = 3  # timed, after one warm-up step
+# serving: the streaming processor (K3) on two shipped effect models, the
+# register-resident width and a generic one
+SERVE_WEIGHTS = (
+    ("egfx_ph_2_peak, H 64", ROOT / "models" / "lstm_64__lfo_2dcnn_io_sa_25_25_no_ch_ln__egfx_ph_2_peak.npz"),
+    ("sim_chorus, H 160", ROOT / "models" / "lstm_160__lfo_2dcnn_r6__sim_chorus.npz"),
+)
+SERVE_SAMPLES = 44100  # 1 s of audio a drive
+SERVE_MAX_BUFFER = 2048
+SERVE_BUFFERS = (128, 512, 2048)  # timed, stereo, H 64
+SERVE_KNOBS = dict(lfo_rate=1.3, lfo_depth=0.9)
+STREAM_ATOL = 1e-5  # chunked against full, the reloaded artifact against the live path
+# the cell state c also within this share of its magnitude: it grows to
+# |c| ~ 30, where a float32 ulp is 1.9e-6 (the LFO's phase is carried from
+# buffer to buffer, so chunked and full differ in its last bits)
+STREAM_C_RTOL = 1e-6
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls, timed with CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def cuda_ms_median(fn, reps: int = 20, batches: int = 5) -> float:
-    """Median over `batches` of the mean ms of `reps` calls, after a warm-up
-    call: a library call's first batches read high on some runs."""
-    fn()
-    return float(np.median([cuda_ms(fn, reps) for _ in range(batches)]))
-
-
-def device_ms_by_kernel(fn, reps: int) -> dict:
-    """Device ms per call of `fn`, by kernel name (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = kernel_short_name(e.key)
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
-    return out
-
-
-def kernel_short_name(key: str) -> str:
-    """`lstm_bwd_walk_fast_kernel<64>` from the profiler's full signature."""
-    m = re.search(r"(\w+)(<[^>(]*>)?\(", key)
-    return m.group(1) + (m.group(2) or "") if m else key[:60]
 
 
 def sm_clock_mhz(fn, launches: int = 1500) -> float:
@@ -413,22 +380,7 @@ def check_phaser_scan(fxk, rng) -> None:
 def profile_train_step(task, batch, label: str, top: int = 15) -> None:
     """torch.profiler over one train step: device time by kernel (top
     entries) and the device's busy share of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        task.train_step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and copies only: a range the optimizer opens ("Optimizer.step#...")
-    # is reported with the device time of the kernels inside it, a second time
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-        and not e.key.startswith("Optimizer.")
-    ]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    wall_ms, busy_ms, events = profile_step(lambda: task.train_step(batch))
     print(f"[profile {label} train_step] wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
           f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
@@ -1163,6 +1115,209 @@ def run_stage2(fxk, lk, rng, k1_row: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# serving: the streaming processor and its torch.export artifact (K3)
+# ---------------------------------------------------------------------------
+
+
+def serve_buffers(rng, total: int) -> list:
+    """Buffer lengths covering `total` samples: a single sample first, then
+    uniform in [1, SERVE_MAX_BUFFER]."""
+    sizes = [1]
+    while sum(sizes) < total:
+        sizes.append(min(int(rng.integers(1, SERVE_MAX_BUFFER + 1)), total - sum(sizes)))
+    return sizes
+
+
+def drive(proc, x, sizes, knobs):
+    """Buffer by buffer, numpy in and out: (y, final state)."""
+    state, outs, i = proc.init_state(), [], 0
+    for n in sizes:
+        y, state = proc.process_np(state, x[:, i : i + n], **knobs)
+        outs.append(y)
+        i += n
+    return np.concatenate(outs, axis=-1), state
+
+
+def load_script(name: str):
+    """`scripts/<name>.py` as a module, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def c_errors(c, c_ref) -> tuple:
+    """(the largest |dc| of a carried cell state, |dc| / |c_ref| at that
+    element, the largest share of the limit STREAM_ATOL + STREAM_C_RTOL
+    |c_ref| that any element uses: at most 1 where the state holds)."""
+    d, mag = (c - c_ref).abs().flatten(), c_ref.abs().flatten()
+    i = int(d.argmax())
+    share = (d / (STREAM_ATOL + STREAM_C_RTOL * mag)).max().item()
+    return d[i].item(), d[i].item() / max(mag[i].item(), 1e-30), share
+
+
+def run_serving(lk, rng) -> dict:
+    """K3 at the serving shapes against its plain version; the streaming
+    processor driven over random buffers on the card (counted), against one
+    full call, against the CPU, and through its reloaded `.pt2` artifact;
+    K3's times per buffer and the three real-time factors.  Returns what K3's
+    row of the kernels line adds."""
+    import tempfile
+
+    bts = load_script("bench_torch_streaming")
+    from mod_extraction_tpu_torch.export.streaming import (
+        StreamingEffectModel,
+        export_streaming_model,
+        load_compiled_processor,
+    )
+
+    # -- K3 at the processor's shapes: batch = channels, T = the buffer
+    worst = 0.0
+    for hid in (64, 160):
+        for b in (1, 2):
+            for t in (1, 128, SERVE_MAX_BUFFER):
+                a = lstm_inputs(rng, b, t, hid)
+                err = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(**a), lk.lstm_forward_plain(**a)))
+                if not err <= KERNEL_TOL:
+                    fail(f"K3 at B {b} T {t} H {hid} disagrees with its plain version: {err}")
+                worst = max(worst, err)
+    print(f"[K3 serving shapes: H 64/160 x B 1/2 x T 1/128/{SERVE_MAX_BUFFER}] worst max_abs_err={worst:.3e}")
+
+    # -- the main path: the processor driven buffer by buffer, counted
+    launches, worst_c = 0, (0.0, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, weights in SERVE_WEIGHTS:
+            for n_ch, offset in ((1, 0.0), (2, math.pi / 2)):
+                knobs = dict(SERVE_KNOBS, stereo_offset=offset)
+                what = f"{label}, {'mono' if n_ch == 1 else 'stereo, offset pi/2'}"
+                sm = StreamingEffectModel(str(weights), n_channels=n_ch, device="cuda")
+                x = rng.uniform(-0.5, 0.5, (n_ch, SERVE_SAMPLES)).astype(np.float32)
+                y_full, s_full = sm.process_np(sm.init_state(), x, **knobs)
+                sizes = serve_buffers(rng, SERVE_SAMPLES)
+                lk.reset_launch_counts()
+                y_chunk, s_chunk = drive(sm, x, sizes, knobs)
+                counted = dict(lk.LAUNCHES)
+                target = export_streaming_model(
+                    str(weights), tmp, f"m{n_ch}_{sm.n_hidden}",
+                    metadata_overrides={"is_input_mono": n_ch == 1},
+                )
+                art = load_compiled_processor(target, device="cuda")
+                art_sizes = serve_buffers(rng, SERVE_SAMPLES)
+                lk.reset_launch_counts()
+                y_art, s_art = drive(art, x, art_sizes, knobs)
+                art_counted = dict(lk.LAUNCHES)
+                cpu = StreamingEffectModel(str(weights), n_channels=n_ch, device="cpu")
+                y_cpu, _ = cpu.process_np(cpu.init_state(), x, **knobs)
+                chunk_err = max(float(np.abs(y_chunk - y_full).max()),
+                                max_abs(s_chunk["h"], s_full["h"]))
+                art_err = float(np.abs(y_art - y_full).max())
+                c_chunk, c_art = c_errors(s_chunk["c"], s_full["c"]), c_errors(s_art["c"], s_full["c"])
+                worst_c = max(worst_c, c_chunk[:2], c_art[:2])
+                cpu_err = float(np.abs(y_full - y_cpu).max())
+                print(f"[serving {what}] {len(sizes)} buffers of 1-{SERVE_MAX_BUFFER} over {SERVE_SAMPLES} "
+                      f"samples: chunked vs full {chunk_err:.3e} (limit {STREAM_ATOL}); card vs CPU "
+                      f"{cpu_err:.3e} (limit {KERNEL_TOL}); reloaded .pt2 on the card ({len(art_sizes)} "
+                      f"buffers) vs live {art_err:.3e} (limit {STREAM_ATOL}); K3 launches {counted['lstm_forward']}"
+                      f" / artifact {art_counted['lstm_forward']}; phase {s_chunk['phase'].item():.6f}")
+                print(f"  cell state, chunked / artifact vs full: max |dc| {c_chunk[0]:.3e} / {c_art[0]:.3e}, "
+                      f"|dc|/|c| there {c_chunk[1]:.3e} / {c_art[1]:.3e}, share of the limit {STREAM_ATOL} + "
+                      f"{STREAM_C_RTOL} |c| used {c_chunk[2]:.3f} / {c_art[2]:.3f}; max |c| "
+                      f"{s_full['c'].abs().max().item():.3f}")
+                for c, n in ((counted, len(sizes)), (art_counted, len(art_sizes))):
+                    if c != dict(lstm_forward=n, lstm_train_forward=0, lstm_backward=0):
+                        fail(f"serving {what}: launches {c}, expected K3 once for each of {n} buffers")
+                if not np.isfinite(y_chunk).all() or y_chunk.shape != x.shape:
+                    fail(f"serving {what}: output of shape {y_chunk.shape}, finite {np.isfinite(y_chunk).all()}")
+                if not chunk_err <= STREAM_ATOL:
+                    fail(f"serving {what}: chunked differs from one full call by {chunk_err}")
+                if not cpu_err <= KERNEL_TOL:
+                    fail(f"serving {what}: the card differs from the CPU by {cpu_err}")
+                if not art_err <= STREAM_ATOL:
+                    fail(f"serving {what}: the reloaded artifact differs from the live path by {art_err}")
+                if not (c_chunk[2] <= 1.0 and c_art[2] <= 1.0):
+                    fail(f"serving {what}: carried cell state, chunked {c_chunk}, artifact {c_art}")
+                if not abs(s_chunk["phase"].item() - s_full["phase"].item()) <= 1e-5:
+                    fail(f"serving {what}: carried phase {s_chunk['phase'].item()} vs {s_full['phase'].item()}")
+                launches += counted["lstm_forward"] + art_counted["lstm_forward"]
+
+        # -- times: stereo, H 64 (the egfx model), per buffer size
+        sm = StreamingEffectModel(str(SERVE_WEIGHTS[0][1]), n_channels=2, device="cuda")
+        art = load_compiled_processor(export_streaming_model(sm.model, tmp, "timed"), device="cuda")
+        rows = bts.measure(sm, art, SERVE_BUFFERS, 2.0, rng)
+    # K3's cycles a step at B 32, T 1024, and the latency floor it sets on a
+    # buffer of T dependent steps
+    a32 = lstm_inputs(rng, BATCH, TBPTT_CHUNK, 64)
+    ms32 = cuda_ms_median(lambda: lk.lstm_forward(**a32))
+    mhz = sm_clock_mhz(lambda: lk.lstm_forward(**a32))
+    cycles = ms32 * 1e3 * mhz / TBPTT_CHUNK
+    lib = torch.nn.LSTM(2, 64).to("cuda")
+    shapes = []
+    for row in rows:
+        t = row["buffer_size"]
+        a = bts.k3_args(sm, (0.1 * rng.standard_normal((2, t))).astype(np.float32), rng)
+        ref = []
+        plain_ms = cuda_ms(lambda: ref.append(lk.lstm_forward_plain(*a)), 1)
+        err = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(*a), ref[0]))
+        seq_tbc = a[0].permute(2, 0, 1).contiguous()
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(seq_tbc)
+
+        # the library's time a call issued back to back, and the card's time a
+        # call with the calls queued ahead (no profiler: inside this run it
+        # has recorded fewer launches than were made)
+        library_call_ms = cuda_ms_median(lib_fwd)
+        library_ms = cuda_ms_queued(lib_fwd, 50, spin_ms=2 * 50 * library_call_ms)
+        n_ops, n_bytes = lstm_ops_bytes(2, t, 64, 2, 1)
+        t_ops, t_bytes = n_ops / F32_OPS_S * 1e3, n_bytes / HBM_BYTES_S * 1e3
+        shape = dict(b=2, t=t, hid=64, ms=row["k3_ms"], profiled_launches=row["k3_profiled_launches"],
+                     fenced_ms=row["k3_fenced_ms"], queued_ms=row["k3_queued_ms"], call_ms=row["k3_call_ms"],
+                     dispatch_ms=row["k3_dispatch_ms"], plain_ms=plain_ms, max_abs_err=err,
+                     bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+                     latency_floor_ms=t * cycles / mhz / 1e3, library_ms=library_ms,
+                     library_call_ms=library_call_ms)
+        shapes.append(shape)
+        print(f"[serving, stereo H 64, buffer {t}] per-call RTF {row['rtf_per_call']:.2f}  sustained RTF "
+              f"{row['rtf_sustained']:.2f} (Python loop of device calls, one sync)  artifact per-call RTF "
+              f"{row['rtf_artifact_per_call']:.2f}  K3 device ms={row['k3_ms']:.4f} ({row['k3_profiled_launches']} "
+              f"launches profiled; fenced {row['k3_fenced_ms']:.4f}, queued {row['k3_queued_ms']:.4f}, "
+              f"issued back to back {row['k3_call_ms']:.4f}, host dispatch {row['k3_dispatch_ms']:.4f}) "
+              f"bound_ms={shape['bound_ms']:.5f} ({shape['bound_by']}) latency floor "
+              f"{shape['latency_floor_ms']:.4f} ms ({cycles:.0f} cycles a step at B {BATCH}, {mhz:.0f} MHz) "
+              f"plain_ms={plain_ms:.1f} library ms queued={library_ms:.4f} (issued back to back "
+              f"{library_call_ms:.4f}) err={err:.3e}")
+        if not err <= KERNEL_TOL:
+            fail(f"K3 at the serving shape (2, {t}) disagrees with its plain version: {err}")
+        if not all(math.isfinite(row[k]) and row[k] > 0 for k in ("rtf_per_call", "rtf_sustained",
+                                                                  "rtf_artifact_per_call")):
+            fail(f"serving RTFs not finite and positive: {row}")
+    print(f"[serving main path] K3 launches {launches}; largest |dc| carried {worst_c[0]:.3e} "
+          f"({worst_c[1]:.3e} of |c| there)")
+    return dict(launches=launches, cycles_per_step_b32=cycles, shapes=shapes, rtf=rows,
+                max_c_err=worst_c[0], c_rel_err_there=worst_c[1])
+
+
+def run_bench() -> list:
+    """`bench_torch.py`'s two measurements at batch 32, two timed steps;
+    each line's numbers checked."""
+    lines = [bench_torch.bench_lfo(batch_size=BATCH, n_steps=2),
+             bench_torch.bench_tbptt(batch_size=BATCH, n_steps=2)]
+    for line in lines:
+        print(json.dumps(line))
+        for k in ("value", "step_ms", "busy_ms"):
+            if not (isinstance(line[k], float) and math.isfinite(line[k]) and line[k] > 0):
+                fail(f"bench_torch {line['metric']}: {k} = {line[k]}")
+        if not 0.0 <= line["idle_share"] < 1.0:
+            fail(f"bench_torch {line['metric']}: idle_share = {line['idle_share']}")
+        if "mfu" in line and not 0.0 < line["mfu"] <= 1.0:
+            fail(f"bench_torch {line['metric']}: mfu = {line['mfu']}")
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this smoke run needs a GPU",
@@ -1195,6 +1350,15 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += run_stage2(fxk, lk, rng, rows[0])
     print(f"[stage 2 total] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serving = run_serving(lk, rng)
+    k3_row = next(r for r in rows if r["name"] == "lstm_effect_model")
+    k3_row["launches"] += serving["launches"]
+    k3_row["serving"] = serving
+    print(f"[serving total] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_bench()
+    print(f"[bench_torch total] {time.perf_counter() - t0:.1f} s")
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

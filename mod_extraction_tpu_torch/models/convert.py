@@ -1,4 +1,4 @@
-"""Flax-layout weights -> the port's `Spectral2DCNN` and `LSTMEffectModel`
+"""Flax-layout weights <-> the port's `Spectral2DCNN` and `LSTMEffectModel`
 state_dicts.
 
 Reads the shipped `.npz` files or a nested dict of numpy arrays from a live
@@ -7,7 +7,8 @@ flax tree (`params` level optional).  Spectral2DCNN keys: `Conv_{i}/kernel`
 `Dense_0/bias`; HWIO kernels become OIHW, Dense (I, O) becomes Linear
 (O, I) (the inverse direction of `mod_extraction_tpu/models/torch_port.py`).
 LSTM keys: `w_ih` (in_dim, 4H), `w_hh` (H, 4H), `b_gates` (4H,),
-`fc/kernel` (H, out), `fc/bias` (out,), kept in that layout.
+`fc/kernel` (H, out), `fc/bias` (out,), kept in that layout;
+`lstm_state_dict_to_flax` maps back.
 """
 
 from __future__ import annotations
@@ -79,6 +80,19 @@ def flax_lstm_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch
     flat = _flat_weights(weights)
     return {ours: torch.from_numpy(np.ascontiguousarray(flat[theirs]))
             for theirs, ours in _LSTM_KEYS.items()}
+
+
+def lstm_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """`LSTMEffectModel.state_dict()` -> the flax param tree (numpy, float32),
+    the inverse of `flax_lstm_to_state_dict`."""
+    tree: Dict[str, Any] = {}
+    for theirs, ours in _LSTM_KEYS.items():
+        node = tree
+        *parents, leaf = theirs.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = sd[ours].detach().cpu().numpy().astype(np.float32)
+    return tree
 
 
 def load_lstm_effect_model(

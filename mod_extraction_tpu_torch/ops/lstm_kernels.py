@@ -26,6 +26,15 @@ width on the generic kernels, for comparisons.
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
 no fallback between the two.
+
+K3 is also an operator, `torch.ops.mod_extraction_tpu_torch.lstm_forward`
+(`torch.library.custom_op`): its CPU implementation is `lstm_forward_plain`,
+its CUDA implementation the kernel's launch, and its fake implementation
+gives the output shapes with the time axis left symbolic.  Every no-gradient
+forward (the TBPTT warm-up and `val_step`, streaming) goes through it, and
+`torch.export` records it as one node, so an exported streaming processor
+runs the plain version on the CPU and the kernel on the card.  Importing
+this module registers it.
 """
 
 from __future__ import annotations
@@ -218,12 +227,34 @@ def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_sta
     return (y, hn, cn, hs, cs, gates) if save_states else (y, hn, cn)
 
 
-def lstm_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
-    """K3 on CUDA tensors, the plain version on CPU tensors: returns
-    y (B, out_ch, T), hn, cn (B, H)."""
-    if seq.device.type == "cpu":
-        return lstm_forward_plain(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
+@torch.library.custom_op("mod_extraction_tpu_torch::lstm_forward", mutates_args=(), device_types="cpu")
+def lstm_forward_op(
+    seq: torch.Tensor, xres: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, w_ih: torch.Tensor,
+    w_hh: torch.Tensor, b: torch.Tensor, fc_k: torch.Tensor, fc_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 as an operator; on CPU tensors the plain version."""
+    return lstm_forward_plain(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
+
+
+@lstm_forward_op.register_kernel("cuda")
+def _lstm_forward_cuda(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
     return _forward_launch("lstm_forward", seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, False)
+
+
+@lstm_forward_op.register_fake
+def _lstm_forward_fake(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
+    bsz, _, t = seq.shape  # t stays symbolic under torch.export
+    f32 = dict(dtype=torch.float32)
+    return (seq.new_empty(bsz, fc_k.shape[-1], t, **f32), h0.new_empty(bsz, w_hh.shape[0], **f32),
+            h0.new_empty(bsz, w_hh.shape[0], **f32))
+
+
+def lstm_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):
+    """K3 through its operator: the kernel on CUDA tensors, the plain
+    version on CPU tensors; returns y (B, out_ch, T), hn, cn (B, H)."""
+    if seq.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"lstm_forward: expected a CPU or CUDA tensor, got {seq.device}")
+    return lstm_forward_op(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)
 
 
 def lstm_train_forward(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b):

@@ -349,3 +349,55 @@ def test_custom_conv_on_card_matches_cpu(wgrad):
         out[dev] = [y.detach().float().cpu()] + [a.grad.float().cpu() for a in args]
     for got, want in zip(out["cuda"], out["cpu"]):
         assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+# K3 at the streaming processor's shapes: batch = channels (1 mono, 2
+# stereo), T = one buffer
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 128, 2048])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("hid", [64, 160])
+def test_lstm_forward_operator_at_serving_shapes(hid, b, t):
+    """K3 through its `torch.library` operator against the plain version:
+    one launch, y, hn and cn within 1e-4."""
+    _need_cuda()
+    a = _lstm_inputs(b, t, hid, seed=4)
+    lstm_kernels.reset_launch_counts()
+    got = torch.ops.mod_extraction_tpu_torch.lstm_forward(*a.values())
+    assert lstm_kernels.LAUNCHES == {"lstm_forward": 1, "lstm_train_forward": 0, "lstm_backward": 0}
+    for x, y in zip(got, lstm_kernels.lstm_forward_plain(**a)):
+        assert x.shape == y.shape and x.is_cuda
+        assert (x - y).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_streaming_artifact_on_card_matches_cpu(tmp_path):
+    """The exported processor on the card: the reloaded `.pt2` against the
+    live path (1e-5) over uneven buffers, one launch of K3 a buffer, and the
+    card against the CPU's plain version (1e-4)."""
+    _need_cuda()
+    from mod_extraction_tpu_torch.export.streaming import (
+        StreamingEffectModel,
+        export_streaming_model,
+        load_compiled_processor,
+        load_streaming_model,
+    )
+
+    w = "models/lstm_64__lfo_2dcnn_io_sa_25_25_no_ch_ln__egfx_ph_2_peak.npz"
+    target = export_streaming_model(w, str(tmp_path), "m")
+    live, art = load_streaming_model(target), load_compiled_processor(target)
+    x = np.random.default_rng(6).uniform(-0.5, 0.5, (2, 3000)).astype(np.float32)
+    knobs = dict(lfo_rate=1.3, lfo_depth=0.9, stereo_offset=0.5)
+    y_live, _ = live.process_np(live.init_state(), x, **knobs)
+    state, outs, i = art.init_state(), [], 0
+    lstm_kernels.reset_launch_counts()
+    sizes = [1, 127, 2048, 824]
+    for n in sizes:
+        y, state = art.process_np(state, x[:, i : i + n], **knobs)
+        outs.append(y)
+        i += n
+    assert lstm_kernels.LAUNCHES["lstm_forward"] == len(sizes)
+    assert np.abs(np.concatenate(outs, -1) - y_live).max() <= 1e-5
+    cpu = StreamingEffectModel(w, device="cpu")
+    y_cpu, _ = cpu.process_np(cpu.init_state(), x, **knobs)
+    assert np.abs(y_cpu - y_live).max() <= TOL

@@ -43,9 +43,16 @@ def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 
 
+# the port's entry points outside the package
+PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.py",
+                "scripts/bench_torch_streaming.py")
+
+
 def test_no_jax_imports_in_package_or_chip_smoke():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / f for f in PORT_SCRIPTS]
     assert len(files) > 15
+    for new in ("export/streaming.py", "paths.py", "train/checkpoints.py", "utils/timing.py"):
+        assert PKG / new in files
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -65,12 +72,17 @@ def test_package_imports_with_jax_blocked():
         )
     ]
     assert "mod_extraction_tpu_torch.train.lfo_task" in mods
-    for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo"):
+    for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo", "export.streaming", "paths",
+                "train.checkpoints", "utils.timing"):
         assert f"mod_extraction_tpu_torch.{new}" in mods
+    scripts = [str(ROOT / f) for f in PORT_SCRIPTS if f != "chip_smoke.py"]
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for i, f in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
@@ -207,3 +219,38 @@ def test_repo_kernel_sources_hash_their_shared_header(monkeypatch):
     assert cuda_build.source_digest("conv_wgrad.cu") != before["conv_wgrad.cu"]
     assert cuda_build.source_digest("fx.cu") != before["fx.cu"]
     assert cuda_build.source_digest("lstm.cu") == before["lstm.cu"]  # lstm.cu does not include it
+
+
+def test_streaming_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):
+    """The serving path defaults to the card and raises without one; the
+    export itself (files and a trace) runs on the CPU."""
+    from mod_extraction_tpu_torch.export import streaming
+
+    w = "models/lstm_64__lfo_2dcnn_io_sa_25_25_no_ch_ln__egfx_ph_2_peak.npz"
+    target = streaming.export_streaming_model(w, str(tmp_path), "m")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (lambda: streaming.StreamingEffectModel(w), lambda: streaming.init_stream_state(2, 64),
+               lambda: streaming.load_streaming_model(target),
+               lambda: streaming.load_compiled_processor(target)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+    assert streaming.load_streaming_model(target, device="cpu").device.type == "cpu"
+
+
+def test_lstm_forward_operator_cpu_implementation_is_plain(monkeypatch):
+    """K3's registered operator answers a CPU tensor with
+    `lstm_forward_plain` and launches nothing."""
+    g = torch.Generator().manual_seed(0)
+    b, t, hid = 2, 5, 4
+    args = [torch.rand(*s, generator=g) for s in
+            ((b, 2, t), (b, 1, t), (b, hid), (b, hid), (2, 4 * hid), (hid, 4 * hid), (4 * hid,), (hid, 1), (1,))]
+    want = lstm_kernels.lstm_forward_plain(*args)
+    calls = []
+    plain = lstm_kernels.lstm_forward_plain
+    monkeypatch.setattr(lstm_kernels, "lstm_forward_plain", lambda *a: calls.append(a) or plain(*a))
+    lstm_kernels.reset_launch_counts()
+    got = torch.ops.mod_extraction_tpu_torch.lstm_forward(*args)
+    assert len(calls) == 1 and all(x is y for x, y in zip(calls[0], args))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert set(lstm_kernels.LAUNCHES.values()) == {0}
+    assert lstm_kernels.lstm_forward_op._opoverload is torch.ops.mod_extraction_tpu_torch.lstm_forward.default
