@@ -27,7 +27,28 @@ points at full width:
   `torch.library` operator), held against one full call, against the CPU,
   and through the `torch.export` artifact reloaded on the card; K3 timed
   per buffer beside its latency floor, and the real-time factors;
-* `bench_torch.py`'s two measurements (stage 1 and TBPTT) at batch 32.
+* `bench_torch.py`'s two measurements: stage 1 at batch 99 and TBPTT at 32,
+  the batches of the two configs the fit phases train;
+* `fit stage 1` and `fit stage 2`, the training entry point
+  (`mod_extraction_tpu_torch.cli.fit`, what `scripts/train_torch.py
+  <config>` runs) on two shipped configs, each over a riff corpus written
+  here (`data/synthetic.py::write_synthetic_corpus`) with the config's data
+  directories pointed at it, three train batches and one val batch an
+  epoch, a log line a step, and everything else as shipped:
+  `configs/train_lfo_interwoven_all_live_r7.yml` (the paper extractor at
+  batch 99 warm-started from the r6 weights, cosine schedule, the
+  interwoven flanger + chorus + phaser module on a device corpus: K1, K2)
+  and `configs/train_em_sim_flanger_r7.yml` (the LSTM-64 warm-started from
+  the r6-conditioned weights on the frozen r7 extractor, lr 1e-5, dry/wet
+  pairs whose wet side is the corpus through K1 at fixed parameters: K3,
+  K4, K5).  Each fit runs an epoch, then resumes from `last` for a second;
+  the launches of each epoch, its metric records, the step count after the
+  resume and the optimizer's lr and weight decay are checked, and the
+  losses of an epoch whose batches reach the card on a side stream must
+  equal those with copies on the compute stream bit for bit.  Each phase
+  prints its step times and `audio_sec_per_sec`, and the idle share of one
+  iteration of the step loop, profiled by the Trainer's own window
+  (`cli.fit(..., profile_steps=...)`), beside the bench at the same batch.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -43,6 +64,12 @@ step of each path, and on the last two lines a JSON object of per-kernel
 measurements and a JSON status line.
 Exits non-zero, with no result, when CUDA is unavailable or any phase fails.
 Imports torch, numpy and the port only.
+
+On a machine without a card, the same entry point trains on the CPU with
+the config's `custom.cpu_*` sizes: `python scripts/train_torch.py <config>
+--device cpu`; the CPU tests hold it against the JAX package
+(`python -m pytest tests/test_torch_fit.py tests/test_torch_cli.py
+tests/test_torch_data.py`).
 """
 
 from __future__ import annotations
@@ -1297,14 +1324,50 @@ def run_serving(lk, rng) -> dict:
             fail(f"serving RTFs not finite and positive: {row}")
     print(f"[serving main path] K3 launches {launches}; largest |dc| carried {worst_c[0]:.3e} "
           f"({worst_c[1]:.3e} of |c| there)")
+    h160 = time_k3_h160(lk, rng)
     return dict(launches=launches, cycles_per_step_b32=cycles, shapes=shapes, rtf=rows,
-                max_c_err=worst_c[0], c_rel_err_there=worst_c[1])
+                max_c_err=worst_c[0], c_rel_err_there=worst_c[1], h160=h160)
+
+
+def time_k3_h160(lk, rng) -> list:
+    """K3's generic path at H 160 (the shipped sim_chorus model's width) in
+    stereo at the three serving buffers, beside `torch.nn.LSTM(2, 160)` at
+    the same shapes: each timed queued (calls issued behind a spin, so the
+    events time the card) and issued back to back."""
+    lib = torch.nn.LSTM(2, 160).to("cuda")
+    out = []
+    for t in SERVE_BUFFERS:
+        a = lstm_inputs(rng, 2, t, 160)
+        seq_tbc = a["seq"].permute(2, 0, 1).contiguous()
+
+        def k3():
+            lk.lstm_forward(**a)
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(seq_tbc)
+
+        row = dict(b=2, t=t, hid=160)
+        for name, fn in (("k3", k3), ("library", lib_fwd)):
+            call_ms = cuda_ms_median(fn, reps=5, batches=3)
+            reps = max(5, min(50, int(200 / max(call_ms, 1e-3))))
+            row[f"{name}_ms"] = cuda_ms_queued(fn, reps, spin_ms=2 * reps * call_ms)
+            row[f"{name}_call_ms"] = call_ms
+        out.append(row)
+        print(f"[K3 H 160, stereo, buffer {t}] queued ms={row['k3_ms']:.4f} (back to back "
+              f"{row['k3_call_ms']:.4f}); torch.nn.LSTM(2, 160) queued ms={row['library_ms']:.4f} (back to "
+              f"back {row['library_call_ms']:.4f}); kernel / library {row['k3_ms'] / row['library_ms']:.3f}")
+    return out
+
+
+FIT_LFO_BATCH = 99  # configs/train_lfo_interwoven_all_live_r7.yml
 
 
 def run_bench() -> list:
-    """`bench_torch.py`'s two measurements at batch 32, two timed steps;
-    each line's numbers checked."""
-    lines = [bench_torch.bench_lfo(batch_size=BATCH, n_steps=2),
+    """`bench_torch.py`'s two measurements at the batches of the configs the
+    fit phases train (stage 1 at 99, TBPTT at 32), two timed steps; each
+    line's numbers checked."""
+    lines = [bench_torch.bench_lfo(batch_size=FIT_LFO_BATCH, n_steps=2),
              bench_torch.bench_tbptt(batch_size=BATCH, n_steps=2)]
     for line in lines:
         print(json.dumps(line))
@@ -1316,6 +1379,221 @@ def run_bench() -> list:
         if "mfu" in line and not 0.0 < line["mfu"] <= 1.0:
             fail(f"bench_torch {line['metric']}: mfu = {line['mfu']}")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# the training entry point: `cli.fit` on shipped configs over a corpus on disk
+# ---------------------------------------------------------------------------
+
+FIT_TRAIN_BATCHES, FIT_VAL_BATCHES = 3, 1
+FIT_LFO_CONFIG = "configs/train_lfo_interwoven_all_live_r7.yml"
+FIT_TBPTT_CONFIG = "configs/train_em_sim_flanger_r7.yml"
+# the fixed flanger that makes stage 2's wet corpus: 1 ms + 10 ms lines
+WET_FLANGER = dict(rate_hz=0.8, min_delay_width=0.5, width=1.0, feedback=0.5, depth=0.7, mix=1.0)
+
+
+def fit_records(out_dir: str) -> list:
+    (path,) = Path(out_dir).glob("*_metrics.jsonl")
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def write_wet_corpus(fxk, dry_root: Path, wet_root: Path) -> int:
+    """Each dry file through K1 on the card at fixed parameters (a 0.8 Hz
+    triangle LFO over the 1 ms + 10 ms flanger), written as PCM16 under the
+    same name; returns the K1 launches made."""
+    from mod_extraction_tpu_torch.data.mods import np_make_mod_signal
+    from mod_extraction_tpu_torch.data.synthetic import flanger_max_delay_samples
+    from mod_extraction_tpu_torch.data.wav import wav_read, wav_write
+
+    d = flanger_max_delay_samples(1.0, 10.0, SR)
+    mmd, mld = round(1.0 / 1000 * SR), round(10.0 / 1000 * SR)
+    launches = 0
+    for split_dir in sorted(p for p in dry_root.iterdir() if p.is_dir()):
+        paths = sorted(split_dir.glob("*.wav"))
+        dry = np.stack([wav_read(str(p))[0] for p in paths])  # (n, 1, T)
+        t = dry.shape[-1]
+        mod = np_make_mod_signal(t, SR, WET_FLANGER["rate_hz"], 0.0, "tri")
+        delay = mld * WET_FLANGER["width"] * mod + WET_FLANGER["min_delay_width"] * mmd
+        x = torch.from_numpy(dry).cuda()
+        n = x.shape[0]
+        par = {k: torch.full((n, 1, 1), WET_FLANGER[k], device="cuda") for k in ("feedback", "depth", "mix")}
+        wet = fxk.flanger(x, torch.from_numpy(np.broadcast_to(delay, (n, 1, t)).astype(np.float32)).cuda(),
+                          par["feedback"], par["depth"], par["mix"], d)
+        launches += 1
+        wet = wet.cpu().numpy()
+        out = wet_root / split_dir.name
+        out.mkdir(parents=True, exist_ok=True)
+        for p, w in zip(paths, wet):
+            wav_write(str(out / p.name), w, int(SR))
+    return launches
+
+
+def fit_config(path: str, corpus: Path, wet: Path | None) -> dict:
+    """The shipped config with its data directories on the corpus here,
+    three train batches and one val batch an epoch, a log line a step;
+    batch size, widths, optimizer, schedule and weights as shipped."""
+    from mod_extraction_tpu_torch.cli import load_yaml_with_includes
+
+    cfg = load_yaml_with_includes(path)
+    args = cfg["data"]["init_args"]
+    bs = args["batch_size"]
+    if "shared_train_args" in args:  # interwoven
+        for split, n in (("train", FIT_TRAIN_BATCHES), ("val", FIT_VAL_BATCHES)):
+            args[f"shared_{split}_args"].update(input_dir=str(corpus / split), num_examples_per_epoch=n * bs)
+    else:  # dry/wet pairs
+        for split in ("train", "val"):
+            args[f"dry_{split}_dir"] = str(corpus / split)
+            args[f"wet_{split}_dir"] = str(wet / split)
+        args["train_num_examples_per_epoch"] = FIT_TRAIN_BATCHES * bs
+        args["val_num_examples_per_epoch"] = FIT_VAL_BATCHES * bs
+    cfg["custom"]["log_every_n_steps"] = 1
+    return cfg
+
+
+def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows: list) -> dict:
+    """`cli.fit` for one epoch, counted and timed, then resumed for a
+    second; the same epoch again with copies made on the compute stream must
+    give the same losses bit for bit (cuDNN held to deterministic algorithms
+    for that pair).  `counters` are the launch-count modules of the path's
+    kernels; `expected(task)` the launches an epoch ({counter: n})."""
+    import copy
+    import tempfile
+
+    from mod_extraction_tpu_torch import cli
+    from mod_extraction_tpu_torch.data.synthetic import write_synthetic_corpus
+    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_synthetic_corpus(str(tmp / "corpus"))  # 32 + 8 riffs of 12 s
+        wet = None
+        if "em_sim" in config:
+            wet = tmp / "wet"
+            n = write_wet_corpus(fxk, tmp / "corpus", wet)
+            print(f"[{label}] wet corpus: the dry riffs through K1 on the card ({n} launches, not counted "
+                  f"on the path), {WET_FLANGER}")
+        print(f"[{label}] corpus written in {time.perf_counter() - t0:.1f} s")
+        cfg = fit_config(config, tmp / "corpus", wet)
+        out = tmp / "out"
+
+        def counted(run):
+            for c in counters:
+                c.reset_launch_counts()
+            result = run()
+            torch.cuda.synchronize()
+            return result, {k: v for c in counters for k, v in c.LAUNCHES.items()}
+
+        t0 = time.perf_counter()
+        task, launches = counted(lambda: cli.fit(copy.deepcopy(cfg), out_dir=str(out), device="cuda",
+                                                 max_epochs=1))
+        fit_s = time.perf_counter() - t0
+        first = fit_records(str(out))
+        # the resumed run profiles its first loop iteration (step 4): the
+        # step, its log line's read of the metrics, the wait for the next
+        # batch and the copy of the one after it (the last iteration of an
+        # epoch this short waits for no batch and issues no copy)
+        resumed_cfg = copy.deepcopy(cfg)
+        resumed_cfg["custom"]["profile_dir"] = str(tmp / "profile")
+        window = (FIT_TRAIN_BATCHES, FIT_TRAIN_BATCHES + 1)
+        task2, launches2 = counted(lambda: cli.fit(resumed_cfg, out_dir=str(out), device="cuda",
+                                                   resume=True, max_epochs=2, profile_steps=window))
+        records = fit_records(str(out))
+        resumed = records[len(first):]
+
+        # -- the checks
+        want = expected(task)
+        for name, recs, got in (("fit", first, launches), ("resumed fit", resumed, launches2)):
+            steps = [r for r in recs if r["phase"] == "train_step"]
+            epochs = [r for r in recs if r["phase"] == "epoch"]
+            if len(steps) != FIT_TRAIN_BATCHES or len(epochs) != 1:
+                fail(f"{label} {name}: {len(steps)} train_step and {len(epochs)} epoch records")
+            losses = [r["loss"] for r in steps] + [epochs[0]["val/loss"], epochs[0]["train/loss"]]
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"{label} {name}: non-finite losses {losses}")
+            if got != want:
+                fail(f"{label} {name}: launches {got}, expected {want} an epoch of "
+                     f"{FIT_TRAIN_BATCHES} train and {FIT_VAL_BATCHES} val batches")
+        steps2 = [r["step"] for r in resumed if r["phase"] == "train_step"]
+        if steps2 != [FIT_TRAIN_BATCHES + i + 1 for i in range(FIT_TRAIN_BATCHES)]:
+            fail(f"{label}: the resumed run's steps are {steps2}, not continuing at step {FIT_TRAIN_BATCHES}")
+        ckpts = sorted(p.name for p in out.glob("*_ckpts/*"))
+        if "last.pt" not in ckpts or "last.json" not in ckpts:
+            fail(f"{label}: no last checkpoint: {ckpts}")
+        upb = task2.updates_per_batch if isinstance(task2, TBPTTEffectModelingTask) else 1
+        updates = 2 * FIT_TRAIN_BATCHES * upb
+        group = task2.optimizer.param_groups[0]
+        opt_cfg = cfg["optimizer"]
+        lr = cli.build_lr(opt_cfg)
+        want_lr = lr(updates) if callable(lr) else lr
+        want_wd = float(opt_cfg["init_args"].get("weight_decay", 0.01))
+        sched_ok = task2.scheduler is None if not callable(lr) else task2.scheduler.last_epoch == updates
+        if not (math.isclose(group["lr"], want_lr, rel_tol=1e-6) and group["weight_decay"] == want_wd
+                and sched_ok and type(task2.optimizer).__name__ == "AdamW"):
+            fail(f"{label}: optimizer lr {group['lr']} wd {group['weight_decay']} after {updates} updates; "
+                 f"the config gives {want_lr} / {want_wd}")
+
+        # -- asynchronous copies against synchronous ones, bit for bit
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            pair = {}
+            for mode in ("async", "sync"):
+                d = tmp / f"det_{mode}"
+                cli.fit(copy.deepcopy(cfg), out_dir=str(d), device="cuda", max_epochs=1,
+                        sync_copies=mode == "sync")
+                recs = fit_records(str(d))
+                pair[mode] = [r["loss"] for r in recs if r["phase"] == "train_step"] + \
+                    [r["val/loss"] for r in recs if r["phase"] == "epoch"]
+        finally:
+            torch.backends.cudnn.deterministic = det
+        if pair["async"] != pair["sync"]:
+            fail(f"{label}: losses with copies on the side stream {pair['async']} differ from those with "
+                 f"copies on the compute stream {pair['sync']}")
+        print(f"[{label}] losses, side-stream copies == compute-stream copies bit for bit: {pair['async']}")
+
+        # -- times: each run's steps after its first (which builds cuDNN
+        # plans or starts the loader) and not profiled: steps 2-3 of the
+        # first run and 5-6 of the resumed one
+        audio_per_batch = cfg["data"]["init_args"]["batch_size"] * N_SAMPLES / SR
+        timed = [r for r in first if r["phase"] == "train_step"][1:] + \
+            [r for r in resumed if r["phase"] == "train_step" and r["step"] > window[1]]
+        readings = [audio_per_batch / r["audio_sec_per_sec"] * 1e3 for r in timed]
+        step_ms = float(np.median(readings))
+        summaries = list((tmp / "profile").glob("*_profile.json"))
+        if len(summaries) != 1:
+            fail(f"{label}: the loop iteration was not profiled")
+        prof = json.loads(summaries[0].read_text())
+        print(f"[{label}] {config} through cli.fit: batch {cfg['data']['init_args']['batch_size']}, epoch of "
+              f"{FIT_TRAIN_BATCHES} + {FIT_VAL_BATCHES} batches in {fit_s:.1f} s (setup included); "
+              f"step ms (median of steps {[r['step'] for r in timed]}) {step_ms:.3f}, readings "
+              f"{[round(x, 3) for x in readings]}, audio_sec_per_sec "
+              f"{audio_per_batch / step_ms * 1e3:.2f}; launches an epoch {launches}; final lr {group['lr']:.6e}")
+        print(f"[{label} profile of one loop iteration] wall_ms={prof['wall_ms']:.3f} "
+              f"device_busy_ms={prof['device_busy_ms']:.3f} idle_share={prof['idle_share']:.3f} host: "
+              f"loader wait {prof['loader_wait_ms']:.3f} ms, batch copies issued {prof['batch_copy_ms']:.3f} ms")
+        for key, ms, n in prof["top_device_ms"]:
+            print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+        print(f"[{label}] bench_torch.py at batch {bench_line['batch_size']}: median step ms "
+              f"{bench_line['median_step_ms']:.3f} ({bench_line['value']:.2f} audio-s/s), profiled step "
+              f"{bench_line['step_ms']:.3f} ms, idle_share {bench_line['idle_share']:.3f}; the fit's step is "
+              f"{step_ms / bench_line['median_step_ms']:.3f} x the bench's")
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"])
+        if key in launches:
+            row["launches"] += launches[key] + launches2[key]
+    print(f"[{label} total] {time.perf_counter() - t_phase:.1f} s")
+    return dict(step_ms=step_ms, step_ms_readings=readings, profile={k: v for k, v in prof.items() if k not in ("top_device_ms", "phase")})
+
+
+# the kernels line's rows -> the launch counters of their wrappers
+ROW_COUNTER = {
+    "flanger_delay_line": "flanger", "phaser_allpass": "phaser", "conv_wgrad_tapcat": "conv_wgrad",
+    "lstm_effect_model": "lstm_forward", "lstm_effect_model_train_fwd": "lstm_train_forward",
+    "lstm_effect_model_train_bwd": "lstm_backward",
+}
 
 
 def main() -> int:
@@ -1357,8 +1635,24 @@ def main() -> int:
     k3_row["serving"] = serving
     print(f"[serving total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    run_bench()
+    bench_lines = run_bench()
     print(f"[bench_torch total] {time.perf_counter() - t0:.1f} s")
+
+    counters = (fxk, ck, lk)
+    none = {k: 0 for c in counters for k in c.LAUNCHES}
+    n_batches = FIT_TRAIN_BATCHES + FIT_VAL_BATCHES
+    fits = {
+        "fit stage 1": run_fit(
+            "fit stage 1", FIT_LFO_CONFIG, counters,
+            lambda task: dict(none, flanger=n_batches, phaser=n_batches), bench_lines[0], rows),
+        "fit stage 2": run_fit(
+            "fit stage 2", FIT_TBPTT_CONFIG, counters,
+            lambda task: dict(none, lstm_forward=n_batches,
+                              lstm_train_forward=FIT_TRAIN_BATCHES * task.updates_per_batch,
+                              lstm_backward=FIT_TRAIN_BATCHES * task.updates_per_batch),
+            bench_lines[1], rows),
+    }
+    print("[fits] " + json.dumps(fits))
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

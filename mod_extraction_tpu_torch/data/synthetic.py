@@ -1,12 +1,14 @@
-"""Synthetic batches (no audio files needed) for tests and the chip smoke
-run: numpy copies of `mod_extraction_tpu/data/synthetic.py::
-make_synthetic_batch` and (its audio-array case) `data/loader.py::collate`,
-plus the interwoven
-(flanger + chorus + phaser) batch the stage-1 path trains on."""
+"""Synthetic data (no recorded audio needed) for tests, the chip smoke run
+and the bench: the numpy copy of `mod_extraction_tpu/data/synthetic.py::
+make_synthetic_batch`, the interwoven (flanger + chorus + phaser) batch the stage-1 path trains
+on, and `write_synthetic_corpus`, the port's copy of the riff corpus that
+`scripts/make_synthetic_corpus.py` writes (same files, byte for byte)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Dict
+
+import os
 
 import numpy as np
 import torch
@@ -15,13 +17,18 @@ from mod_extraction_tpu_torch.data.constants import (
     EFFECT_FLANGER_CHORUS,
     EFFECT_PHASER,
     EFFECT_TREMOLO,
-    FX_FLOAT_KEYS,
-    FX_INT_KEYS,
     MOD_SIG_DIVISOR,
     default_fx,
 )
+from mod_extraction_tpu_torch.data.loader import collate
 from mod_extraction_tpu_torch.data.mods import LFO_SHAPES, np_make_mod_signal
+from mod_extraction_tpu_torch.data.wav import wav_write
 from mod_extraction_tpu_torch.utils.device import resolve_device
+
+CORPUS_SR = 44100
+# E-standard guitar fretboard, lowest octave-and-a-bit (Hz)
+_E2 = 82.41
+SEMITONE = 2.0 ** (1.0 / 12.0)
 
 # Delay-line ranges of the interwoven config's two delay effects
 # (configs/data/interwoven_idmt_all_live.yml): (max_min_delay_ms,
@@ -39,21 +46,6 @@ def flanger_max_delay_samples(
     mmd = int(max_min_delay_ms / 1000.0 * sr + 0.5)
     mld = int(max_lfo_delay_ms / 1000.0 * sr + 0.5)
     return mmd + mld
-
-
-def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack (dry, mod_sig, fx) example dicts into a numpy batch dict."""
-    batch = {
-        "dry": np.stack([it["dry"] for it in items]).astype(np.float32),
-        "mod_sig": np.stack([it["mod_sig"] for it in items]).astype(np.float32),
-    }
-    fx: Dict[str, np.ndarray] = {}
-    for k in FX_FLOAT_KEYS:
-        fx[k] = np.asarray([it["fx"].get(k, 0.0) for it in items], np.float32)
-    for k in FX_INT_KEYS:
-        fx[k] = np.asarray([it["fx"].get(k, 0) for it in items], np.int32)
-    batch["fx"] = fx
-    return batch
 
 
 def make_synthetic_batch(
@@ -139,3 +131,77 @@ def batch_to_torch(batch: Dict, device: str | torch.device = "cuda") -> Dict:
         return torch.as_tensor(np.asarray(v)).to(device)
 
     return conv(batch)
+
+
+def karplus_strong(
+    rng: np.random.Generator, freq: float, n: int, damp: float
+) -> np.ndarray:
+    """Plucked string: noise burst through the KS averaging loop."""
+    period = max(2, int(round(CORPUS_SR / freq)))
+    buf = rng.uniform(-1.0, 1.0, period).astype(np.float64)
+    out = np.empty(n)
+    # vectorize per period block: y[t] = damp * 0.5 * (y[t-p] + y[t-p-1])
+    prev_last = buf[-1]
+    pos = 0
+    while pos < n:
+        take = min(period, n - pos)
+        prev = np.concatenate(([prev_last], buf[:-1]))
+        buf = damp * 0.5 * (buf + prev)
+        out[pos : pos + take] = buf[:take]
+        prev_last = buf[-1]
+        pos += take
+    return out
+
+
+def render_riff(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """Random pentatonic riff with rests; soft-clipped body resonance."""
+    out = np.zeros(n_samples + CORPUS_SR)
+    beat = 60.0 / bpm
+    # random pentatonic scale rooted in the low register
+    root = _E2 * SEMITONE ** rng.integers(0, 12)
+    scale = [0, 3, 5, 7, 10, 12, 15, 17]
+    t = rng.uniform(0.0, 0.5) * beat
+    while t * CORPUS_SR < n_samples:
+        dur_beats = rng.choice([0.5, 0.5, 1.0, 1.0, 2.0])
+        if rng.uniform() < 0.12:  # rest
+            t += dur_beats * beat
+            continue
+        n_notes = 2 if rng.uniform() < 0.25 else 1  # occasional double-stop
+        for _ in range(n_notes):
+            freq = root * SEMITONE ** rng.choice(scale)
+            dur = dur_beats * beat * rng.uniform(1.0, 1.8)  # let notes ring
+            n = int(dur * CORPUS_SR)
+            damp = rng.uniform(0.994, 0.999)
+            note = karplus_strong(rng, freq, n, damp)
+            note *= rng.uniform(0.4, 0.9) * np.exp(-np.arange(n) / (dur * CORPUS_SR))
+            i = int(t * CORPUS_SR)
+            out[i : i + n] += note[: max(0, len(out) - i)]
+        t += dur_beats * beat
+    out = out[:n_samples]
+    out = np.tanh(1.5 * out)  # gentle body/amp saturation
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+def write_synthetic_corpus(
+    out_root: str, n_train: int = 32, n_val: int = 8, dur_s: float = 12.0
+) -> list:
+    """Karplus-Strong guitar riffs as PCM16 wavs under `out_root/{train,val}`,
+    named `riffs_<seed>_<bpm>bpm.wav` (the idmt split convention), each file
+    drawn from its own seed: the corpus `scripts/make_synthetic_corpus.py
+    [out_root] [n_train] [n_val] [dur_s]` writes, byte for byte.  Returns
+    the paths written."""
+    n_samples = int(dur_s * CORPUS_SR)
+    paths = []
+    for split, count, seed0 in (("train", n_train, 1000), ("val", n_val, 2000)):
+        if count <= 0:
+            continue
+        d = os.path.join(out_root, split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(count):
+            rng = np.random.default_rng(seed0 + i)
+            bpm = int(rng.choice([80, 95, 100, 110, 120, 130, 140]))
+            path = os.path.join(d, f"riffs_{seed0 + i}_{bpm}bpm.wav")
+            wav_write(path, render_riff(rng, n_samples, bpm), CORPUS_SR)
+            paths.append(path)
+    return paths

@@ -15,7 +15,7 @@ Step semantics (the JAX `_loss_fn`):
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -45,6 +45,60 @@ def adamw(params, lr: float = 1e-4) -> torch.optim.AdamW:
     )
 
 
+# builds the optimizer over a task's trainable parameters (`cli.py::
+# build_optimizer` returns one from a config)
+OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
+
+
+def make_optimizer(
+    params, optimizer: Optional[OptimizerFactory], lr_schedule: Optional[Callable[[int], float]]
+):
+    """(optimizer, scheduler) over `params`: `optimizer` (the tasks' own
+    default `adamw` when None), and a `LambdaLR` that sets its lr to
+    `lr_schedule(u)` before update u, counted from 0 as optax's schedules
+    count updates; the task advances it once per optimizer update.  The
+    decoupled weight decay of AdamW is multiplied by the scheduled lr, as
+    optax's `adamw` multiplies it."""
+    opt = (optimizer or adamw)(params)
+    if lr_schedule is None:
+        return opt, None
+    base = opt.param_groups[0]["lr"]
+    scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda u: lr_schedule(u) / base)
+    return opt, scheduler
+
+
+class TrainableTask:
+    """What the Trainer and the checkpoints need of a task that trains:
+    `trained_model`, `optimizer`, `scheduler` and `generator` (the host
+    generator of the task's random draws)."""
+
+    trained_model: torch.nn.Module
+    optimizer: Optional[torch.optim.Optimizer] = None
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None
+    generator: torch.Generator
+
+    def _update(self) -> None:
+        """One optimizer update, then the schedule's advance."""
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+
+    def state_dict(self) -> Dict:
+        return {
+            "model": self.trained_model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.trained_model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+        self.generator.set_state(state["generator"])
+
+
 def _slice_batch(batch, sl: slice):
     """The examples `sl` of a (nested) batch dict."""
     if isinstance(batch, dict):
@@ -58,16 +112,19 @@ def _batch_size(batch) -> int:
     return batch.shape[0]
 
 
-class LFOExtractionTask:
+class LFOExtractionTask(TrainableTask):
     """Owns the extractor (or the RandomLFO baseline) and its optimizer;
     `train_step` / `val_step` take a batch dict of tensors on the task's
-    device."""
+    device.  `optimizer` builds the optimizer over the model's parameters
+    (the default `adamw` when None); `lr_schedule` maps an update count to
+    the lr (see `make_optimizer`)."""
 
     def __init__(
         self,
         model: torch.nn.Module | RandomLFO,
         render_cfg: RenderConfig,
-        optimizer: Optional[torch.optim.Optimizer] = None,
+        optimizer: Optional[OptimizerFactory] = None,
+        lr_schedule: Optional[Callable[[int], float]] = None,
         use_dry: bool = True,
         model_smooth_n_frames: int = 4,
         should_stretch: bool = False,
@@ -86,9 +143,11 @@ class LFOExtractionTask:
         self.has_params = not self.is_random_lfo
         self.model = model if self.is_random_lfo else model.to(self.device)
         self.render_cfg = render_cfg
-        self.optimizer = optimizer
-        if self.has_params and optimizer is None:
-            self.optimizer = adamw(self.model.parameters())
+        if self.has_params:
+            self.trained_model = self.model
+            self.optimizer, self.scheduler = make_optimizer(
+                self.model.parameters(), optimizer, lr_schedule
+            )
         self.use_dry = use_dry
         self.model_smooth_n_frames = model_smooth_n_frames
         self.should_stretch = should_stretch
@@ -98,7 +157,7 @@ class LFOExtractionTask:
         self.losses = WeightedLossDict(loss_dict)
         # SpecAugment's four uniforms per (sub-)batch and the RandomLFO
         # baseline's draws come from this host generator
-        self.mask_generator = torch.Generator().manual_seed(seed)
+        self.mask_generator = self.generator = torch.Generator().manual_seed(seed)
 
     def _extract(self, dry, wet, fx, mask_draws, lfo_draws=None):
         if self.is_random_lfo:
@@ -154,7 +213,7 @@ class LFOExtractionTask:
                 mask_draws = torch.rand(4, generator=self.mask_generator)
             loss, metrics = self._loss(batch, corpus, mask_draws)
             loss.backward()
-        self.optimizer.step()
+        self._update()
         return {k: v.detach() for k, v in metrics.items()}
 
     def _backward_subbatched(self, batch, corpus, mask_draws):

@@ -33,6 +33,9 @@ class RenderConfig:
     effects: Tuple[int, ...] = ()
     max_delay_samples: int = 0  # unified flanger/chorus buffer length
     phaser_n_stages: int = 6
+    # RandomAudioChunkAndModSigDataModule: the chunk is the WET input and
+    # the dry input is silence
+    audio_as_wet: bool = False
 
     @property
     def n_mod_frames(self) -> int:
@@ -96,6 +99,9 @@ def render_batch(
     fx = batch["fx"]
     eff = fx["effect_idx"]
     t = dry.shape[-1]
+
+    if cfg.audio_as_wet:
+        return torch.zeros_like(dry), dry, mod_frames, fx
 
     if EFFECT_TREMOLO in cfg.effects or EFFECT_FLANGER_CHORUS in cfg.effects:
         # align_corners=True upsample to audio rate

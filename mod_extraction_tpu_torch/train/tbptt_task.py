@@ -19,7 +19,7 @@ reference, which drops them).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -35,16 +35,31 @@ from mod_extraction_tpu_torch.ops.corners import (
     smoothen,
     stretch_corners,
 )
-from mod_extraction_tpu_torch.train.lfo_task import adamw, center_crop_last
+from mod_extraction_tpu_torch.train.lfo_task import (
+    OptimizerFactory,
+    TrainableTask,
+    center_crop_last,
+    make_optimizer,
+)
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
 
 
-class TBPTTEffectModelingTask:
+# the TBPTT variants not ported yet
+VARIANTS_QUEUED = "the TBPTT variants are queued in ROADMAP.md, queue 1 item 3"
+
+
+class TBPTTEffectModelingTask(TrainableTask):
     """Owns the effect model, the frozen extractor and the optimizer;
     `train_step` / `val_step` take a batch dict of tensors on the task's
-    device."""
+    device.  `optimizer` and `lr_schedule` as in `LFOExtractionTask`; the
+    schedule advances once per chunk update (`updates_per_batch` a batch).
+    `use_dry=False` gives the extractor the wet signal alone.  The
+    unfrozen extractor, a `param_model` and `stretch_smooth_n_frames`
+    raise `NotImplementedError`."""
+
+    has_params = True  # the effect model always trains, whatever conditions it
 
     def __init__(
         self,
@@ -53,14 +68,26 @@ class TBPTTEffectModelingTask:
         warmup_n_samples: int = 1024,
         step_n_samples: int = 1024,
         lfo_model: Optional[torch.nn.Module | RandomLFO] = None,
+        freeze_lfo_model: bool = True,
+        param_model: Optional[torch.nn.Module] = None,
+        optimizer: Optional[OptimizerFactory] = None,
+        lr_schedule: Optional[Callable[[int], float]] = None,
+        use_dry: bool = True,
         model_smooth_n_frames: int = 8,
         should_stretch: bool = True,
         max_n_corners: int = 16,
+        stretch_smooth_n_frames: int = 0,
         discard_invalid_lfos: bool = True,
         loss_dict: Optional[Dict[str, float]] = None,
         device: str | torch.device = "cuda",
         seed: int = 0,
     ):
+        if not freeze_lfo_model and lfo_model is not None and not isinstance(lfo_model, RandomLFO):
+            raise NotImplementedError(f"freeze_lfo_model: false (an unfrozen extractor): {VARIANTS_QUEUED}")
+        if param_model is not None:
+            raise NotImplementedError(f"param_model: {VARIANTS_QUEUED}")
+        if stretch_smooth_n_frames:
+            raise NotImplementedError(f"stretch_smooth_n_frames: {stretch_smooth_n_frames}: {VARIANTS_QUEUED}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_float32_numerics()
@@ -70,11 +97,15 @@ class TBPTTEffectModelingTask:
         if lfo_model is not None and not self.is_random_lfo:
             self.lfo_model = lfo_model.to(self.device).eval().requires_grad_(False)
         # the RandomLFO conditioning draws from this host generator
-        self.lfo_generator = torch.Generator().manual_seed(seed)
+        self.lfo_generator = self.generator = torch.Generator().manual_seed(seed)
         self.render_cfg = render_cfg
         self.warmup_n_samples = warmup_n_samples
         self.step_n_samples = step_n_samples
-        self.optimizer = adamw(self.effect_model.parameters())
+        self.trained_model = self.effect_model
+        self.optimizer, self.scheduler = make_optimizer(
+            self.effect_model.parameters(), optimizer, lr_schedule
+        )
+        self.use_dry = use_dry
         self.model_smooth_n_frames = model_smooth_n_frames
         self.should_stretch = should_stretch
         self.max_n_corners = max_n_corners
@@ -102,7 +133,8 @@ class TBPTTEffectModelingTask:
     @torch.no_grad()
     def _extract_mod_sig(self, dry, wet, mod_frames, fx=None, lfo_draws=None):
         """The LFO (B, F) that conditions the effect model: the frozen
-        extractor's output on cat(dry, wet), a RandomLFO baseline's draw
+        extractor's output on cat(dry, wet) (on wet alone without
+        `use_dry`), a RandomLFO baseline's draw
         (anchored to `fx` as it is configured; `lfo_draws` feeds its random
         numbers in the tests), or the ground truth without an extractor."""
         if self.lfo_model is None:
@@ -111,7 +143,8 @@ class TBPTTEffectModelingTask:
             return self.lfo_model(
                 self.lfo_generator, wet.shape[0], fx, draws=lfo_draws, device=self.device
             )[:, 0, :]
-        return self.lfo_model(torch.cat([dry, wet], dim=1))[0][:, 0, :].to(torch.float32)
+        model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
+        return self.lfo_model(model_in)[0][:, 0, :].to(torch.float32)
 
     def _smooth_stretch(self, mod_hat):
         """Smoothed, corner-stretched LFO and the frames this removed."""
@@ -168,7 +201,7 @@ class TBPTTEffectModelingTask:
             y, new_hidden = em(dry[:, :, a:e], mod_sr[:, :, a:e], hidden)
             loss, _ = self.losses(y, wet[:, :, a:e], weights)
             loss.backward()
-            self.optimizer.step()
+            self._update()
             hidden = detach_state(new_hidden)
             ys.append(y.detach())
         with torch.no_grad():

@@ -121,11 +121,18 @@ def profile_step(step) -> tuple:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and copies only: a range the optimizer opens ("Optimizer.step#...")
-    # is reported with the device time of the kernels inside it, a second time
+    busy_ms, events = device_busy(prof)
+    return wall_ms, busy_ms, events
+
+
+def device_busy(prof) -> tuple:
+    """(device-busy ms, the device events by name) of a finished
+    torch.profiler run: kernels and copies only; a range the optimizer opens
+    ("Optimizer.step#...") is reported with the device time of the kernels
+    inside it, a second time."""
     events = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
         and not e.key.startswith("Optimizer.")
     ]
-    return wall_ms, sum(e.self_device_time_total for e in events) / 1e3, events
+    return sum(e.self_device_time_total for e in events) / 1e3, events

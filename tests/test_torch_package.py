@@ -45,7 +45,10 @@ def _forbidden(module: str) -> bool:
 
 # the port's entry points outside the package
 PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.py",
-                "scripts/bench_torch_streaming.py")
+                "scripts/bench_torch_streaming.py", "scripts/train_torch.py", "scripts/validate_torch.py")
+# the training entry point's modules (config/CLI, data pipeline, Trainer)
+ENTRY_MODULES = ("cli", "native", "train.loop", "data.wav", "data.datasets", "data.loader",
+                 "data.corpus", "data.modules")
 
 
 def test_no_jax_imports_in_package_or_chip_smoke():
@@ -53,6 +56,8 @@ def test_no_jax_imports_in_package_or_chip_smoke():
     assert len(files) > 15
     for new in ("export/streaming.py", "paths.py", "train/checkpoints.py", "utils/timing.py"):
         assert PKG / new in files
+    for new in ENTRY_MODULES:
+        assert PKG / (new.replace(".", "/") + ".py") in files
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -73,7 +78,7 @@ def test_package_imports_with_jax_blocked():
     ]
     assert "mod_extraction_tpu_torch.train.lfo_task" in mods
     for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo", "export.streaming", "paths",
-                "train.checkpoints", "utils.timing"):
+                "train.checkpoints", "utils.timing") + ENTRY_MODULES:
         assert f"mod_extraction_tpu_torch.{new}" in mods
     scripts = [str(ROOT / f) for f in PORT_SCRIPTS if f != "chip_smoke.py"]
     code = (
@@ -108,6 +113,13 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         TBPTTEffectModelingTask(LSTMEffectModel(n_hidden=8), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         batch_to_torch(make_interwoven_batch(0, 3, 4410, 44100.0))
+    from mod_extraction_tpu_torch import cli
+
+    r7 = "configs/train_em_sim_flanger_r7.yml"
+    for entry in (lambda: cli.RunConfig(cli.load_yaml_with_includes(r7)), lambda: cli.fit(r7),
+                  lambda: cli.validate("configs/eval_lfo.yml")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert resolve_device("cpu").type == "cpu"
 
 
