@@ -21,6 +21,13 @@ points at full width:
   the frozen r7 extractor (bf16), flanger batches of 32, a 1024-sample
   warm-up and 83 chunk updates of 1024 samples per step, a `val_step` and
   a few `train_step`s (kernels K1, K3, K4, K5);
+* stage 2 at H 160, the task of `configs/train_em_sim_chorus_h160.yml`:
+  the shipped LSTM-160 chorus model on the frozen r6 extractor, synthetic
+  chorus batches of 32 (delay line 1764), the config's AdamW, a `val_step`
+  and a few `train_step`s beside the H 64 step, one held against the CPU;
+  K3 and K4 run on the cluster forward (one thread-block cluster of CTAs a
+  batch row, W_hh split over their registers), K5 on the generic walk
+  (kernels K1, K3, K4, K5);
 * serving, the streaming processor of `export/streaming.py`: the shipped
   egfx LSTM-64 and sim_chorus LSTM-160 effect models, mono and stereo,
   driven over random buffers of 1-2048 samples (K3, through its
@@ -404,14 +411,16 @@ def check_phaser_scan(fxk, rng) -> None:
         fail(f"K2's chunk entry states are {z_err} from a float64 walk")
 
 
-def profile_train_step(task, batch, label: str, top: int = 15) -> None:
+def profile_train_step(task, batch, label: str, top: int = 15) -> tuple:
     """torch.profiler over one train step: device time by kernel (top
-    entries) and the device's busy share of the step's wall time."""
+    entries) and the device's busy share of the step's wall time; returns
+    (wall ms, busy ms)."""
     wall_ms, busy_ms, events = profile_step(lambda: task.train_step(batch))
     print(f"[profile {label} train_step] wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
           f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    return wall_ms, busy_ms
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms,
@@ -764,7 +773,9 @@ def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
     err_gates = max_abs(out4[5], ref[5])
     b, _, t = a["seq"].shape
     hid = a["w_hh"].shape[0]
-    label = f"{label}, {'fast' if lk.fast_path(hid) else 'generic'} kernels"
+    kernel, n, rows = lk.forward_kernel(hid, b)
+    label = f"{label}, {kernel}{f' ({n} CTAs, {rows} rows)' if kernel == 'cluster' else ''} forward, " \
+            f"{lk.backward_kernel(hid)} backward"
     gen = torch.Generator(device="cuda").manual_seed(dh_seed)
     dh_in = torch.randn(b, t, hid, device="cuda", generator=gen)
     dhn, dcn = (torch.randn(b, hid, device="cuda", generator=gen) for _ in range(2))
@@ -818,6 +829,156 @@ def long_walk_drift(lk, k3_args):
     return state, max_abs(y_card[:1].double().cpu(), y64)
 
 
+def library_lstm(w_ih, w_hh, b) -> torch.nn.LSTM:
+    """`torch.nn.LSTM` on the card holding the same weights (no fc head)."""
+    lib = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0]).to("cuda")
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(w_ih.T)
+        lib.weight_hh_l0.copy_(w_hh.T)
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    return lib
+
+
+def lstm_path_rows(lk, k3_args, k4_args, k5_args, launches: dict, suffix: str = "") -> tuple:
+    """K3, K4 and K5 at a path's shapes, on its own data: each against its
+    plain version and timed (medians of 5 x 20 calls) beside
+    `torch.nn.LSTM` holding the same weights and state (forward for K3 and
+    K4, forward + backward for K5; no fc head).  Returns the kernels line's
+    rows (names + `suffix`, `launches` by counter) and {counter: (ms,
+    library ms)}."""
+    b, in_dim, t_len = k4_args[0].shape
+    hid = k4_args[5].shape[0]
+    lib_lstm = library_lstm(*k3_args[4:7])
+    lib_state = (k4_args[2][None].contiguous(), k4_args[3][None].contiguous())
+    # torch.nn.LSTM takes (T, B, C), contiguous
+    warm_tbc = k3_args[0].permute(2, 0, 1).contiguous()
+    chunk_tbc = k4_args[0].permute(2, 0, 1).contiguous()
+
+    def lib_fwd(seq_tbc):
+        with torch.no_grad():
+            lib_lstm(seq_tbc, lib_state)
+
+    seq_tbc_grad = chunk_tbc.clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        out_, _ = lib_lstm(seq_tbc_grad, lib_state)
+        out_.sum().backward()
+
+    rows, times = [], {}
+    specs = [
+        ("lstm_forward", "lstm_effect_model", lk.lstm_forward, lambda: lk.lstm_forward_plain(*k3_args),
+         k3_args, "mod_extraction_tpu/ops/pallas_lstm.py:52", lambda: lib_fwd(warm_tbc),
+         lstm_ops_bytes(b, t_len, hid, in_dim, 1)),
+        ("lstm_train_forward", "lstm_effect_model_train_fwd", lk.lstm_train_forward,
+         lambda: lk.lstm_forward_plain(*k4_args, save_states=True), k4_args,
+         "mod_extraction_tpu/ops/pallas_lstm.py:141", lambda: lib_fwd(chunk_tbc),
+         lstm_ops_bytes(b, t_len, hid, in_dim, 1, save_states=True)),
+        ("lstm_backward", "lstm_effect_model_train_bwd", lk.lstm_backward,
+         lambda: lk.lstm_backward_plain(*k5_args), k5_args,
+         "mod_extraction_tpu/ops/pallas_lstm.py:198", lib_fwd_bwd,
+         lstm_ops_bytes(b, t_len, hid, in_dim, 1, backward=True)),
+    ]
+    for key, name, kern, plain, args, replaces, lib_fn, (n_ops, n_bytes) in specs:
+        got = kern(*args)
+        ms = cuda_ms_median(lambda: kern(*args))
+        ref_out = []
+        plain_ms = cuda_ms(lambda: ref_out.append(plain()), 1)
+        if key == "lstm_backward":
+            err = max(rel_err(x, y_) for x, y_ in zip(got, ref_out[0]))
+            tol = GRAD_REL
+        else:
+            err = max(max_abs(x, y_) for x, y_ in zip(got, ref_out[0]))
+            tol = KERNEL_TOL
+        library_ms = cuda_ms_median(lib_fn)
+        times[key] = (ms, library_ms)
+        print(f"[{name} B={b} T={args[0].shape[-1]} H={hid}] err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f} "
+              f"library_ms={library_ms:.3f} (torch.nn.LSTM, no fc head; medians of 5 x 20 calls)")
+        if not err <= tol:
+            fail(f"{name} at H {hid}, the main-path shapes, disagrees with its plain version: {err}")
+        rows.append(kernel_row(
+            name + suffix, "mod_extraction_tpu_torch/csrc/lstm.cu", replaces, launches[key], err, ms,
+            plain_ms, n_bytes, n_ops, library_ms,
+        ))
+    # the pair a training user pays for: the library's forward + backward call
+    # holds its own forward, so it stands beside K4 + K5
+    pair_ms = times["lstm_train_forward"][0] + times["lstm_backward"][0]
+    print(f"[K4 + K5 B={b} T={t_len} H={hid}] ms={pair_ms:.3f} beside torch.nn.LSTM forward + backward "
+          f"{times['lstm_backward'][1]:.3f}; K3 {times['lstm_forward'][0]:.3f} and K4 "
+          f"{times['lstm_train_forward'][0]:.3f} beside its forward {times['lstm_forward'][1]:.3f} / "
+          f"{times['lstm_train_forward'][1]:.3f}")
+    return rows, times
+
+
+def path_lstm_args(lk, task, val_batch) -> tuple:
+    """The arguments K3, K4 and K5 take on a TBPTT path, from its own val
+    batch: the warm-up (K3), the first chunk (K4, from the warmed-up state),
+    K5 on that chunk with the l1 loss's cotangent through the fc head, and
+    K3 over the whole val_step clip."""
+    from mod_extraction_tpu_torch.models.lstm import lstm_init_state
+
+    dry, wet, mod_sr, _, weights = task._prepare(val_batch)
+    em = task.effect_model
+    w = [p.detach() for p in (em.w_ih, em.w_hh, em.b_gates, em.fc_kernel, em.fc_bias)]
+    warm, chunk = task.warmup_n_samples, task.step_n_samples
+    end = warm + task.updates_per_batch * chunk
+    b = dry.shape[0]
+    h0, c0 = lstm_init_state(b, em.n_hidden, "cuda")
+    seq_full = torch.cat([mod_sr[:, :, :end], dry[:, :, :end]], 1).contiguous()
+    k3_args = (seq_full[:, :, :warm].contiguous(), dry[:, :, :warm].contiguous(),
+               h0, c0, *w)  # the warm-up of every train step
+    _, hw, cw = lk.lstm_forward(*k3_args)
+    sl = slice(warm, warm + chunk)
+    k4_args = (seq_full[:, :, sl].contiguous(), dry[:, :, sl].contiguous(), hw, cw, *w)
+    y, _, _, hs, cs, gates = lk.lstm_train_forward(*k4_args)
+    dz = torch.sign(y - wet[:, :, sl]) * weights[:, None, None] / (weights.sum().clamp(min=1e-8) * chunk)
+    dz = dz * (1 - y * y)
+    dh_in = torch.einsum("ho,bot->bth", w[3], dz).contiguous()
+    zeros = torch.zeros_like(hw)
+    k5_args = (k4_args[0], hs, cs, gates, hw, cw, *w[:2], dh_in, zeros, zeros)
+    k3_val = (seq_full, dry[:, :, :end].contiguous(), h0, c0, *w)
+    return k3_args, k4_args, k5_args, k3_val
+
+
+def val_walk(lk, k3_val) -> dict:
+    """K3 over the whole val_step clip: timed at full length, held against
+    the plain version on its first 4096 steps (the plain loop is slow), and
+    its final state and y against a float64 plain walk of one batch row on
+    the CPU, where drift over the long walk would show; `torch.nn.LSTM`
+    timed at the same shape where cuDNN takes it."""
+    b, _, end = k3_val[0].shape
+    hid = k3_val[5].shape[0]
+    val_ms = cuda_ms(lambda: lk.lstm_forward(*k3_val), 3)
+    n_cmp = 4096
+    head = [a[..., :n_cmp].contiguous() for a in k3_val[:2]]
+    err = max(max_abs(x, y_) for x, y_ in zip(
+        lk.lstm_forward(*head, *k3_val[2:]), lk.lstm_forward_plain(*head, *k3_val[2:])))
+    if not err <= KERNEL_TOL:
+        fail(f"K3 at H {hid} on the val_step clip's first {n_cmp} steps disagrees with its plain version: {err}")
+    drift, drift_y = long_walk_drift(lk, k3_val)
+    if not (drift <= KERNEL_TOL and drift_y <= KERNEL_TOL):
+        fail(f"K3 at H {hid} after {end} steps is {drift} (state) / {drift_y} (y) from a float64 walk")
+    lib = library_lstm(*k3_val[4:7])
+    full_tbc = k3_val[0].permute(2, 0, 1).contiguous()
+
+    def lib_fwd():
+        with torch.no_grad():
+            lib(full_tbc, (k3_val[2][None].contiguous(), k3_val[3][None].contiguous()))
+
+    try:
+        lib_fwd()
+        lib_val = f"{cuda_ms(lib_fwd, 3):.3f}"
+    except RuntimeError as e:  # a yardstick only: report what cuDNN refused
+        lib_val = f"refused ({str(e).splitlines()[0][:80]})"
+    val_ops, val_bytes = lstm_ops_bytes(b, end, hid, 2, 1)
+    bound_ms = max(val_ops / F32_OPS_S, val_bytes / HBM_BYTES_S) * 1e3
+    print(f"[lstm_effect_model val_step B={b} T={end} H={hid}] ms={val_ms:.3f} "
+          f"err(first {n_cmp} steps)={err:.3e} (hn, cn) after {end} steps vs float64 CPU walk, row 0: "
+          f"{drift:.3e}, y over the clip: {drift_y:.3e} bound_ms={bound_ms:.4f} library_ms={lib_val}")
+    return dict(ms=val_ms, err_head=err, drift_state=drift, drift_y=drift_y, bound_ms=bound_ms,
+                library_ms=lib_val)
+
+
 def lstm_ops_bytes(b, t, hid, in_dim, out_ch, backward=False, save_states=False):
     """(float32 operations, bytes) one K3/K4/K5 launch needs: each input
     read once, each output written once (K4's saved states and gate
@@ -842,25 +1003,28 @@ def lstm_ops_bytes(b, t, hid, in_dim, out_ch, backward=False, save_states=False)
     return ops, 4 * floats
 
 
-def run_stage2(fxk, lk, rng, k1_row: dict) -> list:
+def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     """Stage 2's checks and main path; adds K1 on stage 2's batch (d 485) to
-    `k1_row` under "d485"."""
+    `k1_row` under "d485", and the step's mean, profiled wall and busy ms to
+    `summary`."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
     from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
-    from mod_extraction_tpu_torch.models.lstm import lstm_init_state
     from mod_extraction_tpu_torch.ops.corners import find_corners, smoothen
     from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
     from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
     # -- kernels against their plain versions: the register-resident kernels
-    #    (H 64, 16) and the generic ones (H 160, 48) at a T ragged against
-    #    both chunk sizes and at a single step, then the main path's shapes
-    #    with the shipped weights
+    #    (H 64, 16), the cluster forward with the generic backward (H 160)
+    #    and the generic ones (H 48) at a T ragged against both chunk sizes
+    #    and at a single step, then the main path's shapes with the shipped
+    #    weights
     for hid in (64, 160, 16, 48):
         check_lstm_kernels(lk, lstm_inputs(rng, 5, 300, hid), hid, f"LSTM B=5 T=300 H={hid}")
         check_lstm_kernels(lk, lstm_inputs(rng, 1, 1, hid), hid + 1, f"LSTM B=1 T=1 H={hid}")
-    if not (lk.fast_path(64) and lk.fast_path(16) and not lk.fast_path(160) and not lk.fast_path(48)):
-        fail("the small-shape checks did not cover both kernel paths")
+    kinds = {hid: (lk.forward_kernel(hid, 5)[0], lk.backward_kernel(hid)) for hid in (64, 160, 16, 48)}
+    if kinds != {64: ("registers", "registers"), 160: ("cluster", "generic"),
+                 16: ("registers", "registers"), 48: ("generic", "generic")}:
+        fail(f"the small-shape checks did not cover every kernel path: {kinds}")
     em_w = load_lstm_effect_model(str(LSTM64), device="cuda")
     a = lstm_inputs(rng, BATCH, TBPTT_CHUNK, 64)
     a.update(w_ih=em_w.w_ih.detach(), w_hh=em_w.w_hh.detach(), b=em_w.b_gates.detach(),
@@ -1016,88 +1180,8 @@ def run_stage2(fxk, lk, rng, k1_row: dict) -> list:
                           **{k: k1[k] for k in K1_EXTRA})
 
     # -- each kernel at the main path's shapes, on the path's own data
-    dry, wet, mod_sr, _, weights = task._prepare(val_batch)
-    em = task.effect_model
-    w = [p.detach() for p in (em.w_ih, em.w_hh, em.b_gates, em.fc_kernel, em.fc_bias)]
-    end = TBPTT["warmup_n_samples"] + n_up * TBPTT["step_n_samples"]
-    h0, c0 = lstm_init_state(BATCH, 64, "cuda")
-    seq_full = torch.cat([mod_sr[:, :, :end], dry[:, :, :end]], 1).contiguous()
-    k3_args = (seq_full[:, :, :TBPTT_CHUNK].contiguous(), dry[:, :, :TBPTT_CHUNK].contiguous(),
-               h0, c0, *w)  # the warm-up of every train step
-    _, hw, cw = lk.lstm_forward(*k3_args)
-    sl = slice(TBPTT_CHUNK, 2 * TBPTT_CHUNK)
-    k4_args = (seq_full[:, :, sl].contiguous(), dry[:, :, sl].contiguous(), hw, cw, *w)
-    y, _, _, hs, cs, gates = lk.lstm_train_forward(*k4_args)
-    dz = torch.sign(y - wet[:, :, sl]) * weights[:, None, None] / (weights.sum().clamp(min=1e-8) * TBPTT_CHUNK)
-    dz = dz * (1 - y * y)
-    dh_in = torch.einsum("ho,bot->bth", w[3], dz).contiguous()
-    zeros = torch.zeros_like(hw)
-    k5_args = (k4_args[0], hs, cs, gates, hw, cw, *w[:2], dh_in, zeros, zeros)
-
-    lib_lstm = torch.nn.LSTM(2, 64).to("cuda")
-    with torch.no_grad():
-        lib_lstm.weight_ih_l0.copy_(w[0].T)
-        lib_lstm.weight_hh_l0.copy_(w[1].T)
-        lib_lstm.bias_ih_l0.copy_(w[2])
-        lib_lstm.bias_hh_l0.zero_()
-    lib_state = (hw[None].contiguous(), cw[None].contiguous())
-    # torch.nn.LSTM takes (T, B, C), contiguous
-    warm_tbc = k3_args[0].permute(2, 0, 1).contiguous()
-    chunk_tbc = k4_args[0].permute(2, 0, 1).contiguous()
-
-    def lib_fwd(seq_tbc):
-        with torch.no_grad():
-            lib_lstm(seq_tbc, lib_state)
-
-    seq_tbc_grad = chunk_tbc.clone().requires_grad_()
-
-    def lib_fwd_bwd():
-        out_, _ = lib_lstm(seq_tbc_grad, lib_state)
-        out_.sum().backward()
-
-    rows, times = [], {}
-    specs = [
-        ("lstm_forward", "lstm_effect_model", lk.lstm_forward, lambda: lk.lstm_forward_plain(*k3_args),
-         k3_args, "mod_extraction_tpu/ops/pallas_lstm.py:52", lambda: lib_fwd(warm_tbc),
-         lstm_ops_bytes(BATCH, TBPTT_CHUNK, 64, 2, 1)),
-        ("lstm_train_forward", "lstm_effect_model_train_fwd", lk.lstm_train_forward,
-         lambda: lk.lstm_forward_plain(*k4_args, save_states=True), k4_args,
-         "mod_extraction_tpu/ops/pallas_lstm.py:141", lambda: lib_fwd(chunk_tbc),
-         lstm_ops_bytes(BATCH, TBPTT_CHUNK, 64, 2, 1, save_states=True)),
-        ("lstm_backward", "lstm_effect_model_train_bwd", lk.lstm_backward,
-         lambda: lk.lstm_backward_plain(*k5_args), k5_args,
-         "mod_extraction_tpu/ops/pallas_lstm.py:198", lib_fwd_bwd,
-         lstm_ops_bytes(BATCH, TBPTT_CHUNK, 64, 2, 1, backward=True)),
-    ]
-    for key, name, kern, plain, args, replaces, lib_fn, (n_ops, n_bytes) in specs:
-        got = kern(*args)
-        ms = cuda_ms_median(lambda: kern(*args))
-        ref_out = []
-        plain_ms = cuda_ms(lambda: ref_out.append(plain()), 1)
-        if key == "lstm_backward":
-            err = max(rel_err(x, y_) for x, y_ in zip(got, ref_out[0]))
-            tol = GRAD_REL
-        else:
-            err = max(max_abs(x, y_) for x, y_ in zip(got, ref_out[0]))
-            tol = KERNEL_TOL
-        library_ms = cuda_ms_median(lib_fn)
-        times[key] = (ms, library_ms)
-        t_len = args[0].shape[-1]
-        print(f"[{name} B={BATCH} T={t_len} H=64] err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f} "
-              f"library_ms={library_ms:.3f} (torch.nn.LSTM, no fc head; medians of 5 x 20 calls)")
-        if not err <= tol:
-            fail(f"{name} at the main-path shapes disagrees with its plain version: {err}")
-        rows.append(kernel_row(
-            name, "mod_extraction_tpu_torch/csrc/lstm.cu", replaces, total[key], err, ms,
-            plain_ms, n_bytes, n_ops, library_ms,
-        ))
-    # the pair a training user pays for: the library's forward + backward call
-    # holds its own forward, so it stands beside K4 + K5
-    pair_ms = times["lstm_train_forward"][0] + times["lstm_backward"][0]
-    print(f"[K4 + K5 B={BATCH} T={TBPTT_CHUNK} H=64] ms={pair_ms:.3f} beside torch.nn.LSTM forward + backward "
-          f"{times['lstm_backward'][1]:.3f}; K3 {times['lstm_forward'][0]:.3f} and K4 "
-          f"{times['lstm_train_forward'][0]:.3f} beside its forward {times['lstm_forward'][1]:.3f} / "
-          f"{times['lstm_train_forward'][1]:.3f}")
+    k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
+    rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total)
     # cycles a step of the two walks: kernel time / T x the SM clock under load
     by_kernel = device_ms_by_kernel(lambda: lk.lstm_backward(*k5_args), 10)
     walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_walk" in k_)
@@ -1109,37 +1193,176 @@ def run_stage2(fxk, lk, rng, k1_row: dict) -> list:
           f"K5 walk {walk_ms / TBPTT_CHUNK * mhz * 1e3:.0f} (walk kernel {walk_ms:.4f} ms)")
     if not walk_ms > 0:
         fail(f"the profiler saw no K5 walk kernel: {sorted(by_kernel)}")
-
-    # K3 over the whole val_step clip: timed at full length, held against
-    # the plain version on its first 4096 steps (the plain loop is slow), and
-    # its final state against a float64 plain walk of one batch row on the
-    # CPU, where drift over the long walk would show
-    k3_val = (seq_full, dry[:, :, :end].contiguous(), h0, c0, *w)
-    val_ms = cuda_ms(lambda: lk.lstm_forward(*k3_val), 3)
-    n_cmp = 4096
-    head = [a[..., :n_cmp].contiguous() for a in k3_val[:2]]
-    err = max(max_abs(x, y_) for x, y_ in zip(
-        lk.lstm_forward(*head, *k3_val[2:]), lk.lstm_forward_plain(*head, *k3_val[2:])))
-    if not err <= KERNEL_TOL:
-        fail(f"K3 on the val_step clip's first {n_cmp} steps disagrees with its plain version: {err}")
-    drift, drift_y = long_walk_drift(lk, k3_val)
-    if not (drift <= KERNEL_TOL and drift_y <= KERNEL_TOL):
-        fail(f"K3 after {end} steps is {drift} (state) / {drift_y} (y) from a float64 walk")
-    try:
-        full_tbc = seq_full.permute(2, 0, 1).contiguous()
-        lib_fwd(full_tbc)
-        lib_val = f"{cuda_ms(lambda: lib_fwd(full_tbc), 3):.3f}"
-    except RuntimeError as e:  # a yardstick only: report what cuDNN refused
-        lib_val = f"refused ({str(e).splitlines()[0][:80]})"
-    val_ops, val_bytes = lstm_ops_bytes(BATCH, end, 64, 2, 1)
-    print(f"[lstm_effect_model val_step B={BATCH} T={end} H=64] ms={val_ms:.3f} "
-          f"err(first {n_cmp} steps)={err:.3e} (hn, cn) after {end} steps vs float64 CPU walk, row 0: "
-          f"{drift:.3e}, y over the clip: {drift_y:.3e} "
-          f"bound_ms={max(val_ops / F32_OPS_S, val_bytes / HBM_BYTES_S) * 1e3:.4f} library_ms={lib_val}")
+    val_walk(lk, k3_val)
 
     # -- where one full-width TBPTT train step spends the card's time
-    profile_train_step(task, train_batches[1], "stage 2")
+    wall_ms, busy_ms = profile_train_step(task, train_batches[1], "stage 2")
+    summary.update(step_ms=step_mean * 1e3, profiled_wall_ms=wall_ms, busy_ms=busy_ms)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# stage 2 at H 160: configs/train_em_sim_chorus_h160.yml's task (K1, K3 and
+# K4 on the cluster forward, K5)
+# ---------------------------------------------------------------------------
+
+H160_CONFIG = "configs/train_em_sim_chorus_h160.yml"
+LSTM160 = ROOT / "models" / "lstm_160__lfo_2dcnn_r6__sim_chorus.npz"
+R6 = ROOT / "models" / "lfo_2dcnn_io_sa_25_25_no_ch_ln__interwoven_idmt_all_live_r6.npz"
+N_H160_STEPS = 2  # timed, after one warm-up step
+# the per-step floor of the cluster forward: 4 H^2 multiply-adds a row, R
+# rows over n CTAs at an SM's 128 a cycle
+def h160_fma_cycles(n: int, rows: int) -> int:
+    return rows * 4 * 160 * 160 // (n * 128)
+
+
+def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
+    """The shipped H 160 chorus model's TBPTT training as its config sets it
+    up (batch 32, warm-up and 83 chunks of 1024, the config's AdamW, the
+    frozen r6 extractor in bf16) on synthetic chorus batches (delay line
+    1764): the kernels at the path's shapes with the shipped weights, a
+    `val_step` and a few `train_step`s counted per step and timed beside
+    the H 64 step (`h64`), one step on the card against the CPU, K3 over the
+    val_step clip against a float64 walk, the kernels' rows and a profile.
+    Returns (rows, K1's launches)."""
+    from mod_extraction_tpu_torch.cli import build_optimizer, load_yaml_with_includes
+    from mod_extraction_tpu_torch.data.synthetic import (
+        CHORUS_DELAYS_MS,
+        batch_to_torch,
+        flanger_max_delay_samples,
+        make_synthetic_batch,
+    )
+    from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    hid = 160
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {shape: lk.cluster_occupancy(*shape, save=True) for shape in lk.CLUSTER_SHAPES}
+    kern, n, n_rows = lk.forward_kernel(hid, BATCH)
+    waves = math.ceil(math.ceil(BATCH / n_rows) / occ[(n, n_rows)])
+    print(f"[stage 2 H 160] forward kernel at B {BATCH}: {kern} of {n} CTAs for {n_rows} row(s); the card "
+          f"holds at most {', '.join(f'{v} clusters of {k[0]} CTAs x {k[1]} rows' for k, v in occ.items())} at "
+          f"once ({n_sms} SMs), so B {BATCH} takes {waves} wave(s); at B 2 (serving) {lk.forward_kernel(hid, 2)}")
+    if kern != "cluster" or min(occ.values()) < 1:
+        fail(f"H 160 at B {BATCH} takes {kern}, occupancy {occ}")
+    config = load_yaml_with_includes(H160_CONFIG)
+    margs = config["model"]["init_args"]
+    kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
+                                "should_stretch", "max_n_corners", "discard_invalid_lfos", "loss_dict")}
+    if not (margs["effect_model"]["init_args"]["n_hidden"] == hid
+            and Path(margs["lfo_model_weights_path"]).name == R6.name
+            and config["data"]["init_args"]["batch_size"] == BATCH):
+        fail(f"{H160_CONFIG} no longer names H {hid}, the r6 extractor and batch {BATCH}")
+    optimizer = build_optimizer(config["optimizer"])
+    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,),
+                       max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
+
+    def make_task(dev, lfo_model):
+        return TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM160), device=dev), cfg,
+                                       lfo_model=lfo_model, optimizer=optimizer, device=dev, **kw)
+
+    # -- the kernels at the path's shapes with the shipped weights
+    em_w = load_lstm_effect_model(str(LSTM160), device="cuda")
+    a = lstm_inputs(rng, BATCH, TBPTT_CHUNK, hid)
+    a.update(w_ih=em_w.w_ih.detach(), w_hh=em_w.w_hh.detach(), b=em_w.b_gates.detach(),
+             fc_k=em_w.fc_kernel.detach(), fc_b=em_w.fc_bias.detach())
+    check_lstm_kernels(lk, a, 9, f"LSTM B={BATCH} T={TBPTT_CHUNK} H=160 (shipped weights)")
+
+    # -- the main path, counted per step
+    extractor = load_spectral_2dcnn(str(R6), device="cuda", **PAPER, compute_dtype="bfloat16")
+    task = make_task("cuda", extractor)
+    n_up = task.updates_per_batch
+    if n_up != 83:
+        fail(f"updates_per_batch is {n_up}, expected 83")
+    val_batch = batch_to_torch(make_synthetic_batch(1100, BATCH, N_SAMPLES, SR, "chorus"), "cuda")
+    train_batches = [batch_to_torch(make_synthetic_batch(100 + s, BATCH, N_SAMPLES, SR, "chorus"), "cuda")
+                     for s in range(N_H160_STEPS + 1)]
+    keys = ("flanger", "phaser", "lstm_forward", "lstm_train_forward", "lstm_backward")
+
+    def reset():
+        fxk.reset_launch_counts()
+        lk.reset_launch_counts()
+
+    def counts():
+        c = {**fxk.LAUNCHES, **lk.LAUNCHES}
+        return {k: c[k] for k in keys}
+
+    torch.cuda.synchronize()
+    reset()
+    val = {k: v.item() for k, v in task.val_step(val_batch).items()}
+    total = counts()
+    if total != dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=0, lstm_backward=0):
+        fail(f"H 160 val_step: launches {total}")
+    print(f"[TBPTT H 160 val_step r6 bf16 b={BATCH}] " + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items())))
+    per_step = dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=n_up, lstm_backward=n_up)
+    step_s = []
+    for i, tb in enumerate(train_batches):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = task.train_step(tb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts()
+        if c != per_step:
+            fail(f"H 160 train_step {i}: launches {c}, expected {per_step}")
+        total = {k: total[k] + c[k] for k in keys}
+        if i > 0:
+            step_s.append(dt)
+        print(f"[TBPTT H 160 train_step {i}] " + " ".join(f"{k}={v.item():.6f}" for k, v in sorted(metrics.items()))
+              + f" wall={dt * 1e3:.2f} ms launches={c}")
+    print(f"[stage 2 H 160 main path] launches={total}")
+    if not (all(math.isfinite(v) for v in val.values())
+            and all(math.isfinite(v.item()) for v in metrics.values())
+            and all(torch.isfinite(p).all().item() for p in task.effect_model.parameters())):
+        fail(f"non-finite H 160 TBPTT metrics or parameters: val={val} train={metrics}")
+    step_ms = float(np.mean(step_s)) * 1e3
+    wall_ms, busy_ms = profile_train_step(task, train_batches[1], "stage 2 H 160")
+    print(f"[stage 2 H 160 train] batch={BATCH} updates_per_step={n_up} steps={len(step_s)} "
+          f"mean_step_ms={step_ms:.3f} audio_s_per_s={BATCH * N_SAMPLES / SR / step_ms * 1e3:.2f}; profiled "
+          f"wall {wall_ms:.2f} ms, busy {busy_ms:.2f} ms; the H 64 step (stage 2 above): mean_step_ms="
+          f"{h64['step_ms']:.3f}, profiled wall {h64['profiled_wall_ms']:.2f} ms, busy {h64['busy_ms']:.2f} ms")
+
+    # -- one step on the card against the CPU, float32, batch 3, ground-truth
+    #    conditioning, plain kernels there: the val and train metrics and the
+    #    parameters after the step's 84 AdamW updates
+    ref_np = make_synthetic_batch(2101, 3, N_SAMPLES, SR, "chorus")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = make_task(dev, None)
+        bt = batch_to_torch(ref_np, dev)
+        v = {k: x.item() for k, x in t.val_step(bt).items()}
+        m = {k: x.item() for k, x in t.train_step(bt).items()}
+        out[dev] = (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])
+    for what, i in (("val_step", 0), ("train_step", 1)):
+        for k in out["cpu"][i]:
+            a_, b_ = out["cuda"][i][k], out["cpu"][i][k]
+            if not math.isclose(a_, b_, rel_tol=VAL_RTOL, abs_tol=1e-6):
+                fail(f"TBPTT H 160 {what} {k}: card {a_} vs CPU {b_}")
+        print(f"[TBPTT H 160 {what} f32 gt-LFO card vs CPU, b=3] " + " ".join(
+            f"{k}={out['cuda'][i][k]:.6f}/{out['cpu'][i][k]:.6f}" for k in sorted(out["cpu"][i])))
+    p_err = max(max_abs(x, y) for x, y in zip(out["cuda"][2], out["cpu"][2]))
+    print(f"[TBPTT H 160 LSTM parameters after one gt-LFO train step, card vs CPU] max_abs={p_err:.3e} "
+          f"(tolerance {PARAM_ATOL})")
+    if not p_err <= PARAM_ATOL:
+        fail(f"H 160 LSTM parameters after a train step: card vs CPU max-abs {p_err}")
+
+    # -- each kernel at the path's shapes, on the path's own data; K3 over
+    #    the val clip; the cluster forward's cycles a step beside its floor
+    k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
+    rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total, suffix="_h160")
+    val = val_walk(lk, k3_val)
+    rows[0]["val_step"] = val
+    mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
+    cyc = {k: times[k][0] / TBPTT_CHUNK * mhz * 1e3 for k in ("lstm_forward", "lstm_train_forward")}
+    print(f"[cycles a step at {mhz:.0f} MHz, H 160 B {BATCH}, clusters of {n} CTAs x {n_rows} rows in {waves} "
+          f"wave(s)] K3 {cyc['lstm_forward']:.0f} K4 {cyc['lstm_train_forward']:.0f}; the multiply-adds' floor "
+          f"{h160_fma_cycles(n, n_rows)} a step; K5 (generic) {times['lstm_backward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}")
+    for row, key in zip(rows, ("lstm_forward", "lstm_train_forward")):
+        row.update(cycles_per_step=cyc[key], cluster_ctas=n, cluster_rows=n_rows, waves=waves,
+                   occupancy={f"{k[0]}x{k[1]}": v for k, v in occ.items()})
+    return rows, total["flanger"]
 
 
 # ---------------------------------------------------------------------------
@@ -1213,8 +1436,10 @@ def run_serving(lk, rng) -> dict:
                 worst = max(worst, err)
     print(f"[K3 serving shapes: H 64/160 x B 1/2 x T 1/128/{SERVE_MAX_BUFFER}] worst max_abs_err={worst:.3e}")
 
-    # -- the main path: the processor driven buffer by buffer, counted
-    launches, worst_c = 0, (0.0, 0.0)
+    # -- the main path: the processor driven buffer by buffer, counted (by
+    #    the model's width: H 64 takes the register-resident forward, H 160
+    #    the cluster forward)
+    launches, worst_c = {64: 0, 160: 0}, (0.0, 0.0)
     with tempfile.TemporaryDirectory() as tmp:
         for label, weights in SERVE_WEIGHTS:
             for n_ch, offset in ((1, 0.0), (2, math.pi / 2)):
@@ -1268,7 +1493,7 @@ def run_serving(lk, rng) -> dict:
                     fail(f"serving {what}: carried cell state, chunked {c_chunk}, artifact {c_art}")
                 if not abs(s_chunk["phase"].item() - s_full["phase"].item()) <= 1e-5:
                     fail(f"serving {what}: carried phase {s_chunk['phase'].item()} vs {s_full['phase'].item()}")
-                launches += counted["lstm_forward"] + art_counted["lstm_forward"]
+                launches[sm.n_hidden] += counted["lstm_forward"] + art_counted["lstm_forward"]
 
         # -- times: stereo, H 64 (the egfx model), per buffer size
         sm = StreamingEffectModel(str(SERVE_WEIGHTS[0][1]), n_channels=2, device="cuda")
@@ -1322,7 +1547,7 @@ def run_serving(lk, rng) -> dict:
         if not all(math.isfinite(row[k]) and row[k] > 0 for k in ("rtf_per_call", "rtf_sustained",
                                                                   "rtf_artifact_per_call")):
             fail(f"serving RTFs not finite and positive: {row}")
-    print(f"[serving main path] K3 launches {launches}; largest |dc| carried {worst_c[0]:.3e} "
+    print(f"[serving main path] K3 launches by width {launches}; largest |dc| carried {worst_c[0]:.3e} "
           f"({worst_c[1]:.3e} of |c| there)")
     h160 = time_k3_h160(lk, rng)
     return dict(launches=launches, cycles_per_step_b32=cycles, shapes=shapes, rtf=rows,
@@ -1330,10 +1555,12 @@ def run_serving(lk, rng) -> dict:
 
 
 def time_k3_h160(lk, rng) -> list:
-    """K3's generic path at H 160 (the shipped sim_chorus model's width) in
-    stereo at the three serving buffers, beside `torch.nn.LSTM(2, 160)` at
-    the same shapes: each timed queued (calls issued behind a spin, so the
-    events time the card) and issued back to back."""
+    """K3 at H 160 (the shipped sim_chorus model's width, the cluster
+    forward) in stereo at the three serving buffers, beside
+    `torch.nn.LSTM(2, 160)` at the same shapes: each timed queued (calls
+    issued behind a spin, so the events time the card) and issued back to
+    back.  (K4 and K5 at H 160 are timed beside the library in the H 160
+    stage-2 phase, `lstm_path_rows`.)"""
     lib = torch.nn.LSTM(2, 160).to("cuda")
     out = []
     for t in SERVE_BUFFERS:
@@ -1347,16 +1574,25 @@ def time_k3_h160(lk, rng) -> list:
             with torch.no_grad():
                 lib(seq_tbc)
 
-        row = dict(b=2, t=t, hid=160)
+        row = dict(b=2, t=t, hid=160, cluster=lk.forward_kernel(160, 2)[1:])
         for name, fn in (("k3", k3), ("library", lib_fwd)):
             call_ms = cuda_ms_median(fn, reps=5, batches=3)
             reps = max(5, min(50, int(200 / max(call_ms, 1e-3))))
             row[f"{name}_ms"] = cuda_ms_queued(fn, reps, spin_ms=2 * reps * call_ms)
             row[f"{name}_call_ms"] = call_ms
+        ref = []
+        row["plain_ms"] = cuda_ms(lambda: ref.append(lk.lstm_forward_plain(**a)), 1)
+        row["max_abs_err"] = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(**a), ref[0]))
+        if not row["max_abs_err"] <= KERNEL_TOL:
+            fail(f"K3 at the serving shape (2, {t}) H 160 disagrees with its plain version: {row['max_abs_err']}")
+        n_ops, n_bytes = lstm_ops_bytes(2, t, 160, 2, 1)
+        row["bound_ms"] = max(n_ops / F32_OPS_S, n_bytes / HBM_BYTES_S) * 1e3
         out.append(row)
         print(f"[K3 H 160, stereo, buffer {t}] queued ms={row['k3_ms']:.4f} (back to back "
               f"{row['k3_call_ms']:.4f}); torch.nn.LSTM(2, 160) queued ms={row['library_ms']:.4f} (back to "
-              f"back {row['library_call_ms']:.4f}); kernel / library {row['k3_ms'] / row['library_ms']:.3f}")
+              f"back {row['library_call_ms']:.4f}); kernel / library {row['k3_ms'] / row['library_ms']:.3f}; "
+              f"clusters (CTAs, rows) {row['cluster']}; plain_ms={row['plain_ms']:.1f} err={row['max_abs_err']:.3e} "
+              f"bound_ms={row['bound_ms']:.5f}")
     return out
 
 
@@ -1626,13 +1862,22 @@ def main() -> int:
     rows += run_stage1_kernel_wgrad(fxk, ck, rng)
     print(f"[stage 1 (wgrad=pallas) total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows += run_stage2(fxk, lk, rng, rows[0])
+    h64 = {}
+    rows += run_stage2(fxk, lk, rng, rows[0], h64)
     print(f"[stage 2 total] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    h160_rows, k1_h160 = run_stage2_h160(fxk, lk, rng, h64)
+    rows += h160_rows
+    rows[0]["d1764_h160_path_launches"] = k1_h160
+    print(f"[stage 2 H 160 total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving = run_serving(lk, rng)
     k3_row = next(r for r in rows if r["name"] == "lstm_effect_model")
-    k3_row["launches"] += serving["launches"]
-    k3_row["serving"] = serving
+    k3_row["launches"] += serving["launches"][64]
+    k3_row["serving"] = {k: v for k, v in serving.items() if k != "h160"}
+    k3_h160 = next(r for r in rows if r["name"] == "lstm_effect_model_h160")
+    k3_h160["launches"] += serving["launches"][160]
+    k3_h160["serving"] = serving["h160"]
     print(f"[serving total] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bench_lines = run_bench()

@@ -40,19 +40,35 @@
 // memory).  torch.nn.LSTM (cuDNN, no fc head) takes 0.54 ms forward and
 // 1.5-2.0 ms forward + backward at the same shape.
 //
-// Which kernels: H 16, 32 and 64 take the fast walks below (W_hh in
-// registers, one barrier a step, activations by ex2.approx / rcp.approx);
-// every other H <= 256 takes the generic walks (one thread per gate column,
-// W_hh in shared memory up to H 64-odd and through L2 above, libm
-// activations, two barriers a step forward and three backward: 1.2 / 1.5 ms
-// for K4 / K5 at H 64; at H 160, the shipped chorus model's width, K3 11.4,
-// K4 4.8, K5 8.1 ms).  640 threads x 160 weights do not fit the register
-// file, so H 160 cannot take the fast design as it is.
+// Which kernels (ops/lstm_kernels.py::forward_plan / backward_kernel picks;
+// lstm_forward / lstm_backward launch that plan or refuse it):
+// H 16, 32 and 64 take the fast walks below (W_hh in registers, one barrier
+// a step, activations by ex2.approx / rcp.approx).  H 160, the shipped
+// chorus model's width, takes the cluster forward for K3 and K4: 4 H^2 =
+// 102,400 weights (400 KB) fit neither one SM's registers (640 threads x 160
+// weights) nor its shared memory, so each batch row is split over a
+// thread-block cluster of 4 or 8 CTAs that keep W_hh in their registers and
+// trade h through distributed shared memory (lstm_fwd_cluster_kernel); its
+// K5 is the generic walk.  Every other H <= 256 takes the generic walks (one
+// thread per gate column, W_hh in shared memory up to H 64-odd and through
+// L2 above, libm activations, two barriers a step forward and three
+// backward: 1.2 / 1.5 ms for K4 / K5 at H 64).  At H 160 (same card, same
+// script with --hidden 160): the generic K3 11.38 / K4 4.77 / K5 8.08 ms at
+// B 32, T 1024; the cluster forward K3 0.82 / K4 0.88 ms there (4 CTAs for
+// 2 rows, 16 clusters: the card holds 30 clusters of 4 or 15 of 8, so one
+// row a cluster would take two or three waves at B 32), 1520-1600 cycles a
+// step; at the serving shape (2, T) K3 0.0695 / 0.2558 / 1.0010 ms at T 128
+// / 512 / 2048 (8 CTAs a row, about 970 cycles a step, against the
+// multiply-adds' 100), where torch.nn.LSTM(2, 160) takes 0.63 / 2.33 / 9.14.
+// A step is latency: 8 CTAs a row instead of 4 halve the multiply-adds and
+// save 9%, while a second row on the cluster adds 500 cycles to 1060.
 //
 // Registers and spills (ptxas -v for sm_90a), fast walks at
 // H 64 / 32 / 16: forward without saves (in_dim 2) 120 / 64 / 72, with saves
 // 160 / 72 / 96, in_dim read at run time 126-169; backward 128 / 116 / 95;
-// no spills but 8-12 bytes in the H 32 forward with saves.  Generic forward
+// no spills but 8-12 bytes in the H 32 forward with saves.  Cluster forward
+// (in_dim 2, without / with saves): 8 CTAs x 1 row 119 / 118, 4 x 2 138 /
+// 142; in_dim read at run time 123-167.  Generic forward
 // 58-64, backward 32; partial sums 43 / 76 / 106 / 124 / 128 for kAIt 1 .. 5;
 // dseq 64.  No kernel spills otherwise.
 //
@@ -94,6 +110,7 @@ constexpr int kMaxSmem = 232448;    // a block's shared memory on sm_90
 constexpr int kColTile = 64;        // wgrad: gate columns per block (16 threads x 4)
 constexpr int kRowTile = 32;        // wgrad: rows staged per pass
 constexpr int kMaxAIt = 5;          // wgrad: 4-row groups of A per thread, at most
+constexpr int kClusterHidden = 160; // the width of the cluster forward
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -140,6 +157,64 @@ __device__ __forceinline__ void sts32_if(bool on, unsigned a, float v) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p st.shared.f32 [%0], %1;\n}" ::"r"(a),
       "f"(v), "r"(static_cast<int>(on))
+      : "memory");
+}
+
+__device__ __forceinline__ float2 lds64(unsigned a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+// Thread-block clusters: this CTA's rank, the cluster's index, the address
+// of a shared-memory location in CTA `rank` (distributed shared memory), and
+// the cluster-wide barrier in its two halves.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned mapa(unsigned a, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// How the CTAs of a cluster meet each step: each CTA's mbarriers, told to
+// expect a step's bytes, and st.async, which stores into a peer's shared
+// memory and counts the bytes on that peer's mbarrier once they have landed.
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void st_async_if(bool on, unsigned a, float v, unsigned bar) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+      " @p st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n}" ::"r"(a),
+      "r"(__float_as_uint(v)), "r"(bar), "r"(static_cast<int>(on))
       : "memory");
 }
 
@@ -352,6 +427,309 @@ __global__ void __launch_bounds__(4 * H) lstm_fwd_fast_kernel(
     hn[b * H + u] = h;
     cn[b * H + u] = c;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K3 / K4 at H 160: one thread-block cluster of N CTAs for R batch rows,
+// W_hh split over the cluster
+// ---------------------------------------------------------------------------
+// CTA r of a cluster owns the U = H / N hidden units r U .. r U + U - 1 of
+// its R rows, with all four of their gate columns, so c and the activations
+// stay local.  The L = 2 N lanes of a unit keep in registers, for its four
+// columns, the rows k of W_hh that lie in the vectors l + L i (kVec floats
+// each) of h: 4 H / L weights a lane (80 at N 4, 40 at N 8; 400 KB a
+// cluster, which neither one SM's registers nor its shared memory hold),
+// used for each of the R rows.  A step reads h_{t-1} of each row from this
+// CTA's ring (all lanes of a warp read the same 128 bytes), forms four
+// partial sums, and a shuffle exchange (the fast kernel's two stages, then
+// xor-adds over the lanes 4, 8 apart) leaves every lane with the whole
+// pre-activation of gate l & 3.  c and h follow as there; lane l < N sends
+// the unit's h into CTA l's ring by st.async (distributed shared memory),
+// which counts its 4 bytes on CTA l's mbarrier of the step's parity, and
+// each CTA waits until that barrier has the step's R x 4 H bytes (a phase a
+// step; one thread re-arms it for step t + 2).  The cluster barrier in its
+// place (release/acquire, every CTA waiting for every other) took twice as
+// long a step (1950 against 970 cycles at N 8, B 2).  The ring holds two
+// chunks of kChunk steps of each row's whole h in every CTA: step t writes
+// slot t and reads slot t - 1, and a chunk's fc head reads its half while
+// the next chunk fills the other.  No warp can be more than one step ahead
+// of any other in the cluster (a step needs every unit's h of the step
+// before), so no slot is written while it may still be read, and no
+// barrier's phase is reached twice ahead of its waiters.  The head's
+// outputs are spread over the cluster's H unit groups, L lanes an output.
+// R > 1 puts more rows on a cluster where one cluster a row would take a
+// second wave (the H100 holds 30 clusters of 4, and B 32 is the TBPTT
+// batch); a row past the batch (odd B) walks the last row again and writes
+// nothing.
+template <int H, int N, int R, bool kSave, int kIn>
+__global__ void __launch_bounds__(2 * H, 1) lstm_fwd_cluster_kernel(
+    const float* __restrict__ seq, const float* __restrict__ xres,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    const float* __restrict__ w_ih, const float* __restrict__ w_hh,
+    const float* __restrict__ bias, const float* __restrict__ fc_k,
+    const float* __restrict__ fc_b, float* __restrict__ y,
+    float* __restrict__ hn, float* __restrict__ cn,
+    float* __restrict__ hs, float* __restrict__ cs, float* __restrict__ gates,
+    int batch, int t_len, int in_dim_arg, int out_ch) {
+  extern __shared__ float4 smem4[];
+  __shared__ alignas(8) unsigned long long bars[2];  // steps t with t & 1 = 0, 1
+  constexpr int G4 = 4 * H;
+  constexpr int U = H / N;                        // units of this CTA
+  constexpr int L = 2 * N;                        // lanes a unit
+  constexpr int kThreads = U * L;                 // 2 H
+  constexpr int kVec = (H / 4) % L == 0 ? 4 : 2;  // floats a load of h
+  constexpr int kNv = H / (L * kVec);             // loads of h a lane a step
+  constexpr int kK = kNv * kVec;                  // rows of W_hh a lane holds: H / L
+  constexpr int kChunk = kFwdChunk / R;           // steps staged a pass: R rows' rings fit
+  constexpr int kSlots = 2 * kChunk;
+  constexpr int kRingLd = H + 4;
+  constexpr int kGq = U + 4;  // gate block pitch of a saved row: the storing lanes hit distinct banks
+  constexpr int kGLd = 4 * kGq;
+  constexpr int kW = kIn > 0 ? kIn : kMaxIn;
+  constexpr unsigned kFull = 0xffffffffu;
+  static_assert(H % N == 0 && U % 4 == 0 && 32 % L == 0 && H % (L * kVec) == 0, "cluster split");
+  static_assert((kSlots & (kSlots - 1)) == 0, "ring slots: a power of two");
+  const int in_dim = kIn > 0 ? kIn : in_dim_arg;
+  const int j = threadIdx.x;
+  const int ul = j / L, l = j % L, q = l & 3;
+  const int r = static_cast<int>(cluster_rank());
+  const int u = r * U + ul;
+  const int col = q * H + u;  // the gate column whose activation this lane forms
+  // the batch rows of this cluster (past the batch: the last row again, not written)
+  const int row0 = static_cast<int>(cluster_id()) * R;
+  auto row_of = [&](int rr) { return min(row0 + rr, batch - 1); };
+  auto valid = [&](int rr) { return row0 + rr < batch; };
+  float* ring = reinterpret_cast<float*>(smem4);               // [R][kSlots][kRingLd]: h of every unit
+  float* cring = ring + R * kSlots * kRingLd;                    // kSave: [R][kChunk][U] this CTA's c
+  float* gring = cring + (kSave ? R * kChunk * U : 0);           // kSave: [R][kChunk][kGLd] activations
+  float* seq_s = gring + (kSave ? R * kChunk * kGLd : 0);        // [2][R][in_dim][kChunk]
+  float* x_s = seq_s + 2 * R * in_dim * kChunk;                  // [2][R][out_ch][kChunk]
+
+  float w[4][kK];  // [gate][kVec i + e] = W_hh[kVec (l + L i) + e, gate H + u]
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+#pragma unroll
+    for (int i = 0; i < kNv; ++i) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) w[g][kVec * i + e] = w_hh[(kVec * (l + L * i) + e) * G4 + g * H + u];
+    }
+  }
+  float wih[kW];
+#pragma unroll
+  for (int i = 0; i < kW; ++i) wih[i] = i < in_dim ? w_ih[i * G4 + col] : 0.0f;
+  const float bj = bias[col];
+  // act = s / (1 + 2^(sl a)) + o: the sigmoid, or tanh for gate g
+  const float s = q == 2 ? 2.0f : 1.0f;
+  const float sl = -kLog2e * s;
+  const float o = q == 2 ? -1.0f : 0.0f;
+  const int quad = (j & 31) & ~3;
+  const bool odd = (q & 1) != 0, high = (q & 2) != 0;
+  float c[R], h[R];
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
+    c[rr] = c0[row_of(rr) * H + u];
+    h[rr] = h0[row_of(rr) * H + u];
+    // h_{-1} = h0 in the slot before step 0, the whole row in every CTA
+    for (int i = j; i < H; i += kThreads) {
+      ring[(rr * kSlots + kSlots - 1) * kRingLd + i] = h0[row_of(rr) * H + i];
+    }
+  }
+
+  auto stage = [&](int t0, int buf) {
+    const int n = min(kChunk, t_len - t0);
+    float* sd = seq_s + buf * R * in_dim * kChunk;
+    for (int i = j; i < R * in_dim * kChunk; i += kThreads) {
+      const int rc = i / kChunk, tt = i - rc * kChunk;  // rc = rr in_dim + ch
+      const int rr = rc / in_dim, ch = rc - rr * in_dim;
+      if (tt < n) {
+        cp_async4(sd + i, seq + (static_cast<size_t>(row_of(rr)) * in_dim + ch) * t_len + t0 + tt);
+      } else {
+        sd[i] = 0.0f;
+      }
+    }
+    float* xd = x_s + buf * R * out_ch * kChunk;
+    for (int i = j; i < R * out_ch * kChunk; i += kThreads) {
+      const int rc = i / kChunk, tt = i - rc * kChunk;
+      const int rr = rc / out_ch, ch = rc - rr * out_ch;
+      if (tt < n) {
+        cp_async4(xd + i, xres + (static_cast<size_t>(row_of(rr)) * out_ch + ch) * t_len + t0 + tt);
+      } else {
+        xd[i] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const unsigned bar_loc = smem_addr(bars);
+  constexpr unsigned kStepBytes = R * 4 * H;  // what lands in each CTA a step
+  if (j == 0) {
+    mbar_init(bar_loc, 1);
+    mbar_init(bar_loc + 8, 1);
+    mbar_expect_tx(bar_loc, kStepBytes);
+    if (t_len > 1) mbar_expect_tx(bar_loc + 8, kStepBytes);
+  }
+  stage(0, 0);
+  cp_async_wait_all();
+  // every CTA of the cluster has started and holds h0 and its barriers
+  // before the first remote store (this also stands for the block's barrier)
+  cluster_arrive();
+  cluster_wait();
+  const unsigned bar_rem = mapa(bar_loc, l < N ? l : 0);  // CTA l's barriers
+  // byte addresses in shared memory of what the step loop touches
+  const unsigned ring_loc = smem_addr(ring);
+  const unsigned h_rd = ring_loc + 4 * kVec * l;                  // this lane's vectors of a slot
+  const unsigned h_wr = mapa(ring_loc + 4 * u, l < N ? l : 0);    // unit u's h in CTA l's ring
+  const unsigned cring_wr = smem_addr(cring) + 4 * ul;
+  const unsigned gring_wr = smem_addr(gring) + 4 * (q * kGq + ul);
+  const unsigned seq_rd = smem_addr(seq_s);
+  int sb = 0;  // staging buffer of this chunk
+  for (int t0 = 0; t0 < t_len; t0 += kChunk, sb ^= 1) {
+    const int n = min(kChunk, t_len - t0);
+    if (t0 + kChunk < t_len) stage(t0 + kChunk, sb ^ 1);
+    const unsigned sq = seq_rd + 4 * sb * R * in_dim * kChunk;
+    auto input_proj = [&](int rr, int tt) {
+      float a = bj;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) {
+        if (kIn > 0 || i < in_dim) a = fmaf(wih[i], lds32(sq + 4 * ((rr * in_dim + i) * kChunk + tt)), a);
+      }
+      return a;
+    };
+    float ax[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) ax[rr] = input_proj(rr, 0);
+    for (int tt = 0; tt < n; ++tt) {
+      const int t = t0 + tt;
+      const unsigned rd = h_rd + 4 * kRingLd * ((t - 1) & (kSlots - 1));
+      const unsigned wr = h_wr + 4 * kRingLd * (t & (kSlots - 1));
+      // each phase for all R rows at once, so that the rows' chains overlap
+      float hv[R][kK];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+#pragma unroll
+        for (int i = 0; i < kNv; ++i) {
+          const unsigned ra = rd + 4 * rr * kSlots * kRingLd;
+          if constexpr (kVec == 4) {
+            const float4 v = lds128(ra + 16 * L * i);
+            hv[rr][4 * i] = v.x;
+            hv[rr][4 * i + 1] = v.y;
+            hv[rr][4 * i + 2] = v.z;
+            hv[rr][4 * i + 3] = v.w;
+          } else {
+            const float2 v = lds64(ra + 8 * L * i);
+            hv[rr][2 * i] = v.x;
+            hv[rr][2 * i + 1] = v.y;
+          }
+        }
+      }
+      float a[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;  // gates i, f, g, o over this lane's k
+#pragma unroll
+        for (int i = 0; i < kK; ++i) {
+          p0 = fmaf(w[0][i], hv[rr][i], p0);
+          p1 = fmaf(w[1][i], hv[rr][i], p1);
+          p2 = fmaf(w[2][i], hv[rr][i], p2);
+          p3 = fmaf(w[3][i], hv[rr][i], p3);
+        }
+        // lane q of each four ends with gate q over the four's k (as in the
+        // fast kernel), then the fours of a unit add theirs: every lane of
+        // the unit holds the same sum
+        float k0 = odd ? p1 : p0, k1 = odd ? p3 : p2;
+        k0 += __shfl_xor_sync(kFull, odd ? p0 : p1, 1);
+        k1 += __shfl_xor_sync(kFull, odd ? p2 : p3, 1);
+        a[rr] = high ? k1 : k0;
+        a[rr] += __shfl_xor_sync(kFull, high ? k0 : k1, 2);
+#pragma unroll
+        for (int m = 4; m < L; m *= 2) a[rr] += __shfl_xor_sync(kFull, a[rr], m);
+        a[rr] += ax[rr];
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) ax[rr] = input_proj(rr, min(tt + 1, kChunk - 1));  // off the chain
+      float act[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        act[rr] = fmaf(s, rcp_1p_exp2(sl * a[rr]), o);
+        const float gi = __shfl_sync(kFull, act[rr], quad + 0);
+        const float gf = __shfl_sync(kFull, act[rr], quad + 1);
+        const float gg = __shfl_sync(kFull, act[rr], quad + 2);
+        const float go = __shfl_sync(kFull, act[rr], quad + 3);
+        c[rr] = fmaf(gf, c[rr], gi * gg);
+        h[rr] = go * tanh_fast(c[rr]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        st_async_if(l < N, wr + 4 * rr * kSlots * kRingLd, h[rr], bar_rem + 8 * (t & 1));
+      }
+      if (kSave) {  // kept for the chunk's end, off the step's path
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          sts32_if(l < 4, gring_wr + 4 * (rr * kChunk + tt) * kGLd, act[rr]);
+          sts32_if(l == 0, cring_wr + 4 * (rr * kChunk + tt) * U, c[rr]);
+        }
+      }
+      // the step's R x H values have all landed here; the barrier's next
+      // phase is step t + 2's
+      mbar_wait_cluster(bar_loc + 8 * (t & 1), (t >> 1) & 1);
+      if (j == 0 && t + 2 < t_len) mbar_expect_tx(bar_loc + 8 * (t & 1), kStepBytes);
+    }
+    __syncthreads();  // every warp is past the chunk's last step, and its saves
+    if (kSave) {  // this CTA's units of the chunk's h, c and activations, 16 bytes a store
+      constexpr int U4 = U / 4;
+      for (int i = j; i < R * n * U4; i += kThreads) {
+        const int rt = i / U4, p = i - rt * U4;
+        const int rr = rt / n, tt = rt - rr * n;
+        if (!valid(rr)) continue;
+        const size_t row = static_cast<size_t>(row_of(rr)) * t_len + t0 + tt;
+        const float* hr = ring + (rr * kSlots + ((t0 + tt) & (kSlots - 1))) * kRingLd + r * U;
+        reinterpret_cast<float4*>(hs + row * H + r * U)[p] = reinterpret_cast<const float4*>(hr)[p];
+        reinterpret_cast<float4*>(cs + row * H + r * U)[p] =
+            reinterpret_cast<const float4*>(cring + (rr * kChunk + tt) * U)[p];
+      }
+      for (int i = j; i < R * n * 4 * U4; i += kThreads) {
+        const int rt = i / (4 * U4), p = i - rt * (4 * U4);
+        const int rr = rt / n, tt = rt - rr * n;
+        const int qq = p / U4, pr = p - qq * U4;
+        if (!valid(rr)) continue;
+        const size_t row = static_cast<size_t>(row_of(rr)) * t_len + t0 + tt;
+        reinterpret_cast<float4*>(gates + row * G4 + qq * H + r * U)[pr] =
+            reinterpret_cast<const float4*>(gring + (rr * kChunk + tt) * kGLd + qq * kGq)[pr];
+      }
+    }
+    // fc head + residual + tanh for the chunk's steps: output p goes to the
+    // cluster's unit group p mod H, L lanes an output
+    const float* xq = x_s + sb * R * out_ch * kChunk;
+    const int total = R * out_ch * n;
+    for (int p0 = 0; p0 < total; p0 += H) {
+      const int p = min(p0 + u, total - 1);
+      const int ro = p / n, tt = p - ro * n;  // ro = rr out_ch + oc
+      const int rr = ro / out_ch, oc = ro - rr * out_ch;
+      const float* hr = ring + (rr * kSlots + ((t0 + tt) & (kSlots - 1))) * kRingLd;
+      float z = 0.0f;
+      for (int kk = l; kk < H; kk += L) z = fmaf(hr[kk], fc_k[kk * out_ch + oc], z);
+#pragma unroll
+      for (int m = 1; m < L; m *= 2) z += __shfl_xor_sync(kFull, z, m);
+      if (l == 0 && p0 + u < total && valid(rr)) {
+        y[(static_cast<size_t>(row_of(rr)) * out_ch + oc) * t_len + t0 + tt] =
+            tanhf(z + fc_b[oc] + xq[ro * kChunk + tt]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (l == 0) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      if (valid(rr)) {
+        hn[row_of(rr) * H + u] = h[rr];
+        cn[row_of(rr) * H + u] = c[rr];
+      }
+    }
+  }
+  // no CTA leaves while its stores to a peer may be in flight
+  cluster_arrive();
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -979,6 +1357,13 @@ int bwd_fast_smem_floats(int hid) {
   return 3 * kBwdChunk * 4 * (hid + 8) + 2 * (kBwdChunk + 1) * hid + 4 * kBwdChunk * hid;
 }
 
+int fwd_cluster_smem_floats(int hid, int n, int rows, int in_dim, int out_ch, bool save) {
+  const int u = hid / n;
+  const int chunk = kFwdChunk / rows;
+  return rows * (2 * chunk * (hid + 4) + (save ? chunk * (u + 4 * (u + 4)) : 0) +
+                 2 * (in_dim + out_ch) * chunk);
+}
+
 bool is_fast_width(int hid) { return hid == 16 || hid == 32 || hid == 64; }
 
 template <typename Kernel>
@@ -1013,9 +1398,58 @@ cudaError_t launch_fwd_fast(const FwdArgs& a) {
   return a.in_dim == 2 ? launch_fwd_fast_in<H, kSave, 2>(a) : launch_fwd_fast_in<H, kSave, 0>(a);
 }
 
+// The cluster forward: launched, or with `max_clusters` the most of its
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters) instead.
+template <int H, int N, int R, bool kSave, int kIn>
+cudaError_t launch_fwd_cluster_in(const FwdArgs& a, int* max_clusters) {
+  auto kernel = lstm_fwd_cluster_kernel<H, N, R, kSave, kIn>;
+  const int bytes =
+      fwd_cluster_smem_floats(H, N, R, a.in_dim, a.out_ch, kSave) * static_cast<int>(sizeof(float));
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.batch + R - 1) / R * N);
+  cfg.blockDim = dim3(2 * H);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kernel, a.seq, a.xres, a.h0, a.c0, a.w_ih, a.w_hh, a.bias, a.fc_k,
+                         a.fc_b, a.y, a.hn, a.cn, a.hs, a.cs, a.gates, a.batch, a.t_len, a.in_dim,
+                         a.out_ch);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// (CTAs a cluster, rows a cluster): (8, 1) or (4, 2)
+template <bool kSave, int kIn>
+cudaError_t launch_fwd_cluster_nr(const FwdArgs& a, int n, int* max_clusters) {
+  constexpr int H = kClusterHidden;
+  return n == 8 ? launch_fwd_cluster_in<H, 8, 1, kSave, kIn>(a, max_clusters)
+                : launch_fwd_cluster_in<H, 4, 2, kSave, kIn>(a, max_clusters);
+}
+
 template <bool kSave>
-cudaError_t launch_fwd(const FwdArgs& a, bool fast) {
-  if (fast && fwd_fast_smem_floats(a.hid, a.in_dim, a.out_ch, kSave) * 4 <= kMaxSmem) {
+cudaError_t launch_fwd_cluster(const FwdArgs& a, int n, int* max_clusters) {
+  return a.in_dim == 2 ? launch_fwd_cluster_nr<kSave, 2>(a, n, max_clusters)
+                       : launch_fwd_cluster_nr<kSave, 0>(a, n, max_clusters);
+}
+
+bool is_cluster_shape(int n, int rows) { return (n == 8 && rows == 1) || (n == 4 && rows == 2); }
+
+template <bool kSave>
+cudaError_t launch_fwd(const FwdArgs& a, bool registers) {
+  if (registers) {
+    if (!is_fast_width(a.hid) ||
+        fwd_fast_smem_floats(a.hid, a.in_dim, a.out_ch, kSave) * 4 > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
     if (a.hid == 16) return launch_fwd_fast<16, kSave>(a);
     if (a.hid == 32) return launch_fwd_fast<32, kSave>(a);
     return launch_fwd_fast<64, kSave>(a);
@@ -1081,29 +1515,56 @@ extern "C" {
 
 int lstm_max_in_dim() { return kMaxIn; }
 int lstm_max_hidden() { return kMaxHidden; }
-// 1 where the register-resident walks serve this width
-int lstm_fast_width(int hid) { return is_fast_width(hid) ? 1 : 0; }
 
-// K3 (hs == cs == gates == nullptr) or K4.  allow_fast == 0 keeps a width
-// of the fast path on the generic kernels (for comparison).  Returns a
-// cudaError_t.
+// K3 (hs == cs == gates == nullptr) or K4, on the caller's plan: cluster >
+// 0, the cluster forward, `cluster` CTAs for `cluster_rows` batch rows (8
+// for 1 or 4 for 2, H 160 only); registers != 0, the register-resident walk
+// (H 16/32/64 only); both 0, the generic walk.  A plan the kernels lack is
+// refused.  Returns a cudaError_t.
 int lstm_forward(const float* seq, const float* xres, const float* h0, const float* c0,
                  const float* w_ih, const float* w_hh, const float* bias,
                  const float* fc_k, const float* fc_b, float* y, float* hn, float* cn,
                  float* hs, float* cs, float* gates, int batch, int t_len, int hid,
-                 int in_dim, int out_ch, int allow_fast, void* stream) {
+                 int in_dim, int out_ch, int registers, int cluster, int cluster_rows,
+                 void* stream) {
   if (hid < 1 || hid > kMaxHidden || in_dim < 1 || in_dim > kMaxIn || out_ch < 1 ||
       t_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FwdArgs a{seq, xres, h0, c0, w_ih, w_hh, bias, fc_k, fc_b, y, hn, cn, hs, cs, gates,
                   batch, t_len, hid, in_dim, out_ch, static_cast<cudaStream_t>(stream)};
-  const bool fast = allow_fast != 0 && is_fast_width(hid);
-  return static_cast<int>(hs != nullptr ? launch_fwd<true>(a, fast) : launch_fwd<false>(a, fast));
+  if (cluster != 0) {
+    if (registers != 0 || hid != kClusterHidden || !is_cluster_shape(cluster, cluster_rows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(hs != nullptr ? launch_fwd_cluster<true>(a, cluster, nullptr)
+                                          : launch_fwd_cluster<false>(a, cluster, nullptr));
+  }
+  return static_cast<int>(hs != nullptr ? launch_fwd<true>(a, registers != 0)
+                                        : launch_fwd<false>(a, registers != 0));
 }
 
-// K5.  gates: K4's saved activations.  dgates: (batch * t_len, 4H) scratch;
-// w_hh_t: (4H, H) scratch, needed only off the fast path (may be null on it);
+// The most clusters of `cluster` CTAs for `cluster_rows` rows of the H 160
+// forward (K4 with save, K3 without) that the card holds at once, in *out.
+// Returns a cudaError_t.
+int lstm_cluster_occupancy(int cluster, int cluster_rows, int in_dim, int out_ch, int save, int* out) {
+  if (!is_cluster_shape(cluster, cluster_rows) || in_dim < 1 || in_dim > kMaxIn || out_ch < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FwdArgs a{};
+  a.batch = 1;
+  a.t_len = 1;
+  a.hid = kClusterHidden;
+  a.in_dim = in_dim;
+  a.out_ch = out_ch;
+  return static_cast<int>(save != 0 ? launch_fwd_cluster<true>(a, cluster, out)
+                                    : launch_fwd_cluster<false>(a, cluster, out));
+}
+
+// K5.  registers != 0: the register-resident walk (H 16/32/64 only, else
+// refused), 0: the generic walk.  gates: K4's saved activations.  dgates:
+// (batch * t_len, 4H) scratch; w_hh_t: (4H, H) scratch, needed only by the
+// generic walk (may be null with registers);
 // partial: (n_slices, na, 4H) scratch; dwcat: (na, 4H) out, rows
 // [dW_hh (H) | dW_ih (in_dim) | db]; dseq (B, in_dim, T), dh0/dc0 (B, H) out.
 // na = H + in_dim + 1.
@@ -1112,8 +1573,9 @@ int lstm_backward(const float* seq, const float* hs, const float* cs, const floa
                   const float* dh_in, const float* dhn, const float* dcn, float* dgates,
                   float* w_hh_t, float* partial, float* dwcat, float* dseq, float* dh0, float* dc0,
                   int batch, int t_len, int hid, int in_dim, int n_slices,
-                  int rows_per_slice, int allow_fast, void* stream) {
-  if (hid < 1 || hid > kMaxHidden || in_dim < 1 || in_dim > kMaxIn || t_len < 1) {
+                  int rows_per_slice, int registers, void* stream) {
+  if (hid < 1 || hid > kMaxHidden || in_dim < 1 || in_dim > kMaxIn || t_len < 1 ||
+      (registers != 0 && !is_fast_width(hid))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_rows = batch * t_len;
@@ -1122,7 +1584,7 @@ int lstm_backward(const float* seq, const float* hs, const float* cs, const floa
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (allow_fast != 0 && is_fast_width(hid)) {
+  if (registers != 0) {
     const WalkArgs a{gates, cs, c0, w_hh, dh_in, dhn, dcn, dgates, dh0, dc0, batch, t_len, s};
     e = hid == 16 ? launch_walk_fast<16>(a)
                   : hid == 32 ? launch_walk_fast<32>(a) : launch_walk_fast<64>(a);

@@ -18,10 +18,16 @@ activations are (B, T, 4H): sigmoid(i), sigmoid(f), tanh(g), sigmoid(o).
 K5 reads them and never recomputes a gate, so it takes neither the bias
 nor the pre-activations.
 
-On the card the widths H 16, 32 and 64 take the kernels whose recurrent
-weights stay in registers; every other H <= 256 the generic ones
-(`csrc/lstm.cu` says how they differ).  `ALLOW_FAST = False` keeps every
-width on the generic kernels, for comparisons.
+Which kernel a width takes on the card (`forward_kernel`, `backward_kernel`;
+`csrc/lstm.cu` says how they differ): H 16, 32 and 64 the kernels whose
+recurrent weights stay in registers (K3, K4 and K5); H 160, the shipped
+chorus model's width, a forward (K3, K4) that runs the batch as
+thread-block clusters with W_hh split over their CTAs' registers, 8 CTAs
+for one row or 4 for two as the batch allows (`cluster_shape`), and the
+generic backward; every other H <= 256 the generic kernels.  The plan is
+made here and passed to the library, which launches it or refuses it.
+`ALLOW_FAST = False` keeps every width on the generic kernels, for
+comparisons only.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
@@ -40,6 +46,7 @@ this module registers it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Tuple
 
@@ -53,8 +60,14 @@ LAUNCHES = {"lstm_forward": 0, "lstm_train_forward": 0, "lstm_backward": 0}
 WGRAD_MIN_ROWS_PER_SLICE = 256
 #: Partial sums of that reduction, at most.
 WGRAD_MAX_SLICES = 128
-#: False keeps H 16 / 32 / 64 on the generic kernels (benchmarks only).
+#: False keeps H 16 / 32 / 64 and H 160 on the generic kernels (benchmarks only).
 ALLOW_FAST = True
+#: Widths of the register-resident kernels (K3, K4, K5).
+FAST_WIDTHS = (16, 32, 64)
+#: The width of the cluster forward (K3, K4).
+CLUSTER_HIDDEN = 160
+#: (CTAs, batch rows) of the cluster forward's kernels.
+CLUSTER_SHAPES = ((8, 1), (4, 2))
 
 _lib = None
 
@@ -74,23 +87,71 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_forward.argtypes = [p] * 15 + [i] * 6 + [p]
+        lib.lstm_forward.argtypes = [p] * 15 + [i] * 8 + [p]
         lib.lstm_forward.restype = i
         lib.lstm_backward.argtypes = [p] * 18 + [i] * 7 + [p]
         lib.lstm_backward.restype = i
         for limit in (lib.lstm_max_in_dim, lib.lstm_max_hidden):
             limit.argtypes = []
             limit.restype = i
-        lib.lstm_fast_width.argtypes = [i]
-        lib.lstm_fast_width.restype = i
+        lib.lstm_cluster_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.lstm_cluster_occupancy.restype = i
         _lib = lib
     return _lib
 
 
-def fast_path(hid: int) -> bool:
-    """Whether the card's kernels for this width keep W_hh in registers
-    (builds and loads the library)."""
-    return bool(ALLOW_FAST and _load().lstm_fast_width(hid))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_shape(batch: int, n_sms: int) -> Tuple[int, int]:
+    """(CTAs, batch rows) a cluster of the H 160 forward: 8 CTAs (100 cycles
+    of a step's multiply-adds each) for one row while a cluster for every
+    row fits one wave, else 4 CTAs for two rows.  The clusters of a wave
+    fill at most 15/16 of the SMs: the GPCs' SM counts leave the rest (the
+    H100's 132 SMs hold 15 clusters of 8 and 30 of 4), so B 15 and 60 are
+    the largest batches of the two shapes that run in one wave."""
+    if 8 * batch <= n_sms * 15 // 16:
+        return 8, 1
+    return 4, 2
+
+
+def forward_plan(batch: int, hid: int, n_sms: int) -> Tuple[str, int, int]:
+    """The forward kernel (K3, K4) that a launch of `batch` rows at width
+    `hid` takes on a card of `n_sms` SMs, with its CTAs and rows a cluster:
+    ("registers", 1, 1) at H 16/32/64, ("cluster", *`cluster_shape`) at H
+    160, ("generic", 1, 1) otherwise.  A pure function of its arguments."""
+    if hid in FAST_WIDTHS:
+        return "registers", 1, 1
+    if hid == CLUSTER_HIDDEN:
+        return ("cluster", *cluster_shape(batch, n_sms))
+    return "generic", 1, 1
+
+
+def forward_kernel(hid: int, batch: int, device=None) -> Tuple[str, int, int]:
+    """`forward_plan` on the current (or given) CUDA device; ("generic", 1,
+    1) with `ALLOW_FAST` off."""
+    if not ALLOW_FAST:
+        return "generic", 1, 1
+    index = getattr(device, "index", None)
+    return forward_plan(batch, hid, _sm_count(torch.cuda.current_device() if index is None else index))
+
+
+def backward_kernel(hid: int) -> str:
+    """The backward kernel (K5) of a width: "registers" at H 16/32/64,
+    "generic" otherwise or with `ALLOW_FAST` off."""
+    return "registers" if ALLOW_FAST and hid in FAST_WIDTHS else "generic"
+
+
+def cluster_occupancy(n: int, rows: int, save: bool, in_dim: int = 2, out_ch: int = 1) -> int:
+    """The most clusters of `n` CTAs for `rows` batch rows of the H 160
+    forward (K4 with `save`, K3 without) that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
+    out = ctypes.c_int(0)
+    _check(_load().lstm_cluster_occupancy(n, rows, in_dim, out_ch, int(save), ctypes.byref(out)),
+           "cluster occupancy")
+    return out.value
 
 
 def _check(rc: int, name: str) -> None:
@@ -195,7 +256,10 @@ def lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)
 # ---------------------------------------------------------------------------
 
 
-def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_states):
+def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_states, plan=None):
+    """K3 or K4 on the card, on `forward_kernel`'s plan unless `plan`
+    (kernel, CTAs, rows) names another (benchmarks: each cluster shape at one
+    batch)."""
     bsz, in_dim, t = seq.shape
     hid = w_hh.shape[0]
     out_ch = fc_k.shape[-1]
@@ -207,6 +271,7 @@ def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_sta
     lib = _load()
     args = [_f32(a) for a in (seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b)]
     dev = seq.device
+    kernel, n, rows = plan or forward_kernel(hid, bsz, dev)
     y = torch.empty(bsz, out_ch, t, dtype=torch.float32, device=dev)
     hn = torch.empty(bsz, hid, dtype=torch.float32, device=dev)
     cn = torch.empty_like(hn)
@@ -219,8 +284,8 @@ def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_sta
     _check(
         lib.lstm_forward(
             *(a.data_ptr() for a in args), y.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            _ptr(hs), _ptr(cs), _ptr(gates), bsz, t, hid, in_dim, out_ch, int(ALLOW_FAST),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(hs), _ptr(cs), _ptr(gates), bsz, t, hid, in_dim, out_ch, int(kernel == "registers"),
+            n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
         ),
         name,
     )
@@ -303,8 +368,9 @@ def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
     na = hid + in_dim + 1
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty(n_rows, 4 * hid, **f32)
+    registers = backward_kernel(hid) == "registers"
     # the generic walk reads W_hh transposed where it does not fit shared memory
-    w_hh_t = None if fast_path(hid) else torch.empty(4 * hid, hid, **f32)
+    w_hh_t = None if registers else torch.empty(4 * hid, hid, **f32)
     partial = torch.empty(n_slices, na, 4 * hid, **f32)
     dwcat = torch.empty(na, 4 * hid, **f32)
     dseq = torch.empty(bsz, in_dim, t, **f32)
@@ -315,7 +381,7 @@ def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
         lib.lstm_backward(
             *(a.data_ptr() for a in args), dgates.data_ptr(), _ptr(w_hh_t), partial.data_ptr(),
             dwcat.data_ptr(), dseq.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(ALLOW_FAST),
+            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(registers),
             torch.cuda.current_stream(dev).cuda_stream,
         ),
         "lstm_backward",

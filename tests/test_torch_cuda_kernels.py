@@ -162,10 +162,12 @@ def _lstm_inputs(b, t, hid, in_dim=2, seed=0):
 
 
 # H 16 and 64 take the register-resident kernels, H 160 (the shipped chorus
-# model's width) and H 50 (not a multiple of 4) the generic ones; T around
-# the forward chunk of 64 and the backward chunk of 32, and ragged
+# model's width) the cluster forward and the generic backward, H 50 (not a
+# multiple of 4) the generic ones; T around the forward chunk of 64 and the
+# backward chunk of 32, and ragged
 LSTM_HIDDEN = [16, 64, 160, 50]
 LSTM_SHAPES = [(5, 300), (1, 1), (1, 63), (5, 64), (1, 65)]
+LSTM_FORWARD_KERNEL = {16: "registers", 64: "registers", 160: "cluster", 50: "generic"}
 
 
 @pytest.mark.cuda
@@ -174,7 +176,8 @@ LSTM_SHAPES = [(5, 300), (1, 1), (1, 63), (5, 64), (1, 65)]
 def test_lstm_forward_kernels_match_plain(hid, b, t):
     """K3 and K4: y, hn, cn and K4's saved hs, cs and gate activations."""
     _need_cuda()
-    assert lstm_kernels.fast_path(hid) == (hid in (16, 32, 64))
+    assert lstm_kernels.backward_kernel(hid) == ("registers" if hid in (16, 32, 64) else "generic")
+    assert lstm_kernels.forward_kernel(hid, b)[0] == LSTM_FORWARD_KERNEL[hid]
     a = _lstm_inputs(b, t, hid)
     lstm_kernels.reset_launch_counts()
     out3 = lstm_kernels.lstm_forward(**a)
@@ -219,12 +222,80 @@ def test_lstm_generic_kernels_serve_a_fast_width():
     fast = lstm_kernels.lstm_train_forward(**a)
     lstm_kernels.ALLOW_FAST = False
     try:
-        assert not lstm_kernels.fast_path(64)
+        assert lstm_kernels.forward_kernel(64, 3) == ("generic", 1, 1)
+        assert lstm_kernels.backward_kernel(64) == "generic"
         generic = lstm_kernels.lstm_train_forward(**a)
     finally:
         lstm_kernels.ALLOW_FAST = True
     for x, y in zip(fast, generic):
         assert (x - y).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,in_dim,shape",
+    [(2, 2048, 2, (8, 1)), (3, 130, 2, (8, 1)), (32, 1024, 2, (4, 2)), (31, 130, 2, (4, 2)),
+     (3, 130, 3, (8, 1)), (31, 130, 3, (4, 2))],
+)
+def test_lstm_cluster_forward_matches_plain(b, t, in_dim, shape):
+    """K3 and K4 at H 160 on the cluster forward, each cluster shape reached
+    through the batch that takes it: the serving (B 2) and TBPTT (B 32)
+    shapes, B 3, and B 31 (two rows a cluster leave one row past the
+    batch); in_dim 3 runs the kernels that read in_dim at run time.  Every
+    output within 1e-4 of the plain version."""
+    _need_cuda()
+    a = _lstm_inputs(b, t, 160, in_dim=in_dim, seed=5)
+    assert lstm_kernels.forward_kernel(160, b) == ("cluster", *shape)
+    out3 = lstm_kernels.lstm_forward(**a)
+    out4 = lstm_kernels.lstm_train_forward(**a)
+    ref = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    for got, want in zip(out3, ref[:3]):
+        assert (got - want).abs().max().item() <= TOL
+    for got, want in zip(out4, ref):
+        assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_lstm_generic_kernels_serve_the_cluster_width():
+    """With `ALLOW_FAST` off, H 160 runs on the generic forward and agrees
+    with the cluster forward within the kernels' tolerance."""
+    _need_cuda()
+    a = _lstm_inputs(3, 200, 160, seed=6)
+    cluster = lstm_kernels.lstm_train_forward(**a)
+    lstm_kernels.ALLOW_FAST = False
+    try:
+        assert lstm_kernels.forward_kernel(160, 3) == ("generic", 1, 1)
+        generic = lstm_kernels.lstm_train_forward(**a)
+    finally:
+        lstm_kernels.ALLOW_FAST = True
+    for x, y in zip(cluster, generic):
+        assert (x - y).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_lstm_cluster_launch_refused_raises():
+    """Every cluster shape fits the card; a plan the kernels do not have (a
+    cluster of 6 CTAs, a cluster at H 64, the register-resident walk at H
+    160) is refused by the library's entry and raises; nothing falls back
+    to another kernel."""
+    _need_cuda()
+    for n, rows in lstm_kernels.CLUSTER_SHAPES:
+        for save in (False, True):
+            assert lstm_kernels.cluster_occupancy(n, rows, save) >= 1
+    lib = lstm_kernels._load()
+    for hid, plan in ((160, ("cluster", 6, 1)), (64, ("cluster", 8, 1)), (160, ("registers", 1, 1))):
+        a = _lstm_inputs(2, 10, hid, seed=7)
+        _, n, rows = plan
+        out = [torch.empty(2, 1, 10, device="cuda"), torch.empty(2, hid, device="cuda"),
+               torch.empty(2, hid, device="cuda")]
+        rc = lib.lstm_forward(
+            *(t.data_ptr() for t in a.values()), *(t.data_ptr() for t in out), None, None, None,
+            2, 10, hid, 2, 1, int(plan[0] == "registers"), n if plan[0] == "cluster" else 0, rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        assert rc != 0
+        with pytest.raises(RuntimeError, match="cudaError"):
+            lstm_kernels._forward_launch("lstm_forward", *a.values(), False, plan=plan)
 
 
 @pytest.mark.cuda
