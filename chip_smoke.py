@@ -25,9 +25,9 @@ points at full width:
   the shipped LSTM-160 chorus model on the frozen r6 extractor, synthetic
   chorus batches of 32 (delay line 1764), the config's AdamW, a `val_step`
   and a few `train_step`s beside the H 64 step, one held against the CPU;
-  K3 and K4 run on the cluster forward (one thread-block cluster of CTAs a
-  batch row, W_hh split over their registers), K5 on the generic walk
-  (kernels K1, K3, K4, K5);
+  K3, K4 and K5's walk run on the cluster kernels (one thread-block
+  cluster of CTAs for one or two batch rows, W_hh split over their
+  registers) (kernels K1, K3, K4, K5);
 * serving, the streaming processor of `export/streaming.py`: the shipped
   egfx LSTM-64 and sim_chorus LSTM-160 effect models, mono and stereo,
   driven over random buffers of 1-2048 samples (K3, through its
@@ -100,6 +100,7 @@ from mod_extraction_tpu_torch.utils.timing import (
     cuda_ms_median,
     cuda_ms_queued,
     device_ms_by_kernel,
+    device_ms_per_launch,
     profile_step,
 )
 
@@ -763,7 +764,8 @@ def lstm_inputs(rng, b, t, hid, in_dim=2):
 
 
 def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
-    """K3, K4 (its saved gate activations too) and K5 against their plain
+    """K3, K4 (its saved gate activations too) and K5 (dseq, dh0, dc0, the
+    weight gradients and its walk's gate cotangents) against their plain
     versions on the same inputs, two K5 launches against each other, and the
     K4/K5 training pair against autograd through the plain forward."""
     ref = lk.lstm_forward_plain(**a, save_states=True)  # y, hn, cn, hs, cs, gates
@@ -773,15 +775,18 @@ def check_lstm_kernels(lk, a, dh_seed: int, label: str) -> None:
     err_gates = max_abs(out4[5], ref[5])
     b, _, t = a["seq"].shape
     hid = a["w_hh"].shape[0]
-    kernel, n, rows = lk.forward_kernel(hid, b)
-    label = f"{label}, {kernel}{f' ({n} CTAs, {rows} rows)' if kernel == 'cluster' else ''} forward, " \
-            f"{lk.backward_kernel(hid)} backward"
+    def plan_name(plan):
+        kernel, n, rows = plan
+        return f"{kernel}{f' ({n} CTAs, {rows} rows)' if kernel == 'cluster' else ''}"
+
+    label = f"{label}, {plan_name(lk.forward_kernel(hid, b))} forward, " \
+            f"{plan_name(lk.backward_kernel(hid, b))} backward"
     gen = torch.Generator(device="cuda").manual_seed(dh_seed)
     dh_in = torch.randn(b, t, hid, device="cuda", generator=gen)
     dhn, dcn = (torch.randn(b, hid, device="cuda", generator=gen) for _ in range(2))
     bargs = (a["seq"], *ref[3:6], a["h0"], a["c0"], a["w_ih"], a["w_hh"], dh_in, dhn, dcn)
-    got5, again5 = lk.lstm_backward(*bargs), lk.lstm_backward(*bargs)
-    err5 = max(rel_err(x, y) for x, y in zip(got5, lk.lstm_backward_plain(*bargs)))
+    got5, again5 = lk._backward_launch(*bargs), lk._backward_launch(*bargs)
+    err5 = max(rel_err(x, y) for x, y in zip(got5, lk.lstm_backward_plain(*bargs, with_dgates=True)))
     same5 = all(torch.equal(x, y) for x, y in zip(got5, again5))
 
     x, lat = a["seq"][:, 1:].contiguous(), a["seq"][:, :1].contiguous()
@@ -844,9 +849,10 @@ def lstm_path_rows(lk, k3_args, k4_args, k5_args, launches: dict, suffix: str = 
     """K3, K4 and K5 at a path's shapes, on its own data: each against its
     plain version and timed (medians of 5 x 20 calls) beside
     `torch.nn.LSTM` holding the same weights and state (forward for K3 and
-    K4, forward + backward for K5; no fc head).  Returns the kernels line's
-    rows (names + `suffix`, `launches` by counter) and {counter: (ms,
-    library ms)}."""
+    K4, forward + backward for K5, and for K5 also the library's backward
+    alone, its forward's graph kept; no fc head).  Returns the kernels
+    line's rows (names + `suffix`, `launches` by counter) and {counter:
+    (ms, library ms)}."""
     b, in_dim, t_len = k4_args[0].shape
     hid = k4_args[5].shape[0]
     lib_lstm = library_lstm(*k3_args[4:7])
@@ -864,6 +870,13 @@ def lstm_path_rows(lk, k3_args, k4_args, k5_args, launches: dict, suffix: str = 
     def lib_fwd_bwd():
         out_, _ = lib_lstm(seq_tbc_grad, lib_state)
         out_.sum().backward()
+
+    out_kept, _ = lib_lstm(seq_tbc_grad, lib_state)
+    leaves = [seq_tbc_grad, *lib_lstm.parameters()]
+    ones = torch.ones_like(out_kept)
+
+    def lib_bwd():
+        torch.autograd.grad(out_kept, leaves, ones, retain_graph=True)
 
     rows, times = [], {}
     specs = [
@@ -903,8 +916,11 @@ def lstm_path_rows(lk, k3_args, k4_args, k5_args, launches: dict, suffix: str = 
     # the pair a training user pays for: the library's forward + backward call
     # holds its own forward, so it stands beside K4 + K5
     pair_ms = times["lstm_train_forward"][0] + times["lstm_backward"][0]
+    bwd_ms = cuda_ms_median(lib_bwd)
+    rows[2]["library_bwd_only_ms"] = bwd_ms
     print(f"[K4 + K5 B={b} T={t_len} H={hid}] ms={pair_ms:.3f} beside torch.nn.LSTM forward + backward "
-          f"{times['lstm_backward'][1]:.3f}; K3 {times['lstm_forward'][0]:.3f} and K4 "
+          f"{times['lstm_backward'][1]:.3f}; K5 {times['lstm_backward'][0]:.3f} beside its backward alone "
+          f"{bwd_ms:.3f}; K3 {times['lstm_forward'][0]:.3f} and K4 "
           f"{times['lstm_train_forward'][0]:.3f} beside its forward {times['lstm_forward'][1]:.3f} / "
           f"{times['lstm_train_forward'][1]:.3f}")
     return rows, times
@@ -1014,15 +1030,15 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
     # -- kernels against their plain versions: the register-resident kernels
-    #    (H 64, 16), the cluster forward with the generic backward (H 160)
+    #    (H 64, 16), the cluster kernels (H 160)
     #    and the generic ones (H 48) at a T ragged against both chunk sizes
     #    and at a single step, then the main path's shapes with the shipped
     #    weights
     for hid in (64, 160, 16, 48):
         check_lstm_kernels(lk, lstm_inputs(rng, 5, 300, hid), hid, f"LSTM B=5 T=300 H={hid}")
         check_lstm_kernels(lk, lstm_inputs(rng, 1, 1, hid), hid + 1, f"LSTM B=1 T=1 H={hid}")
-    kinds = {hid: (lk.forward_kernel(hid, 5)[0], lk.backward_kernel(hid)) for hid in (64, 160, 16, 48)}
-    if kinds != {64: ("registers", "registers"), 160: ("cluster", "generic"),
+    kinds = {hid: (lk.forward_kernel(hid, 5)[0], lk.backward_kernel(hid, 5)[0]) for hid in (64, 160, 16, 48)}
+    if kinds != {64: ("registers", "registers"), 160: ("cluster", "cluster"),
                  16: ("registers", "registers"), 48: ("generic", "generic")}:
         fail(f"the small-shape checks did not cover every kernel path: {kinds}")
     em_w = load_lstm_effect_model(str(LSTM64), device="cuda")
@@ -1183,10 +1199,10 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
     rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total)
     # cycles a step of the two walks: kernel time / T x the SM clock under load
-    by_kernel = device_ms_by_kernel(lambda: lk.lstm_backward(*k5_args), 10)
+    by_kernel = device_ms_per_launch(lambda: lk.lstm_backward(*k5_args), 10)
     walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_walk" in k_)
     mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
-    print("[K5 by kernel, ms a launch] " + "  ".join(
+    print("[K5 by kernel, ms a launch (profiler, mean of the launches recorded)] " + "  ".join(
         f"{k_}={v:.4f}" for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
     print(f"[cycles a step at {mhz:.0f} MHz (nvidia-smi clocks.sm under load)] "
           f"K4 walk {times['lstm_train_forward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}  "
@@ -1202,16 +1218,17 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# stage 2 at H 160: configs/train_em_sim_chorus_h160.yml's task (K1, K3 and
-# K4 on the cluster forward, K5)
+# stage 2 at H 160: configs/train_em_sim_chorus_h160.yml's task (K1, and K3,
+# K4 and K5's walk on the cluster kernels)
 # ---------------------------------------------------------------------------
 
 H160_CONFIG = "configs/train_em_sim_chorus_h160.yml"
 LSTM160 = ROOT / "models" / "lstm_160__lfo_2dcnn_r6__sim_chorus.npz"
 R6 = ROOT / "models" / "lfo_2dcnn_io_sa_25_25_no_ch_ln__interwoven_idmt_all_live_r6.npz"
 N_H160_STEPS = 2  # timed, after one warm-up step
-# the per-step floor of the cluster forward: 4 H^2 multiply-adds a row, R
-# rows over n CTAs at an SM's 128 a cycle
+# the per-step floor of the cluster kernels (the forward's W_hh^T h, the
+# backward's W_hh dgates): 4 H^2 multiply-adds a row, R rows over n CTAs at
+# an SM's 128 a cycle
 def h160_fma_cycles(n: int, rows: int) -> int:
     return rows * 4 * 160 * 160 // (n * 128)
 
@@ -1246,6 +1263,14 @@ def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
           f"once ({n_sms} SMs), so B {BATCH} takes {waves} wave(s); at B 2 (serving) {lk.forward_kernel(hid, 2)}")
     if kern != "cluster" or min(occ.values()) < 1:
         fail(f"H 160 at B {BATCH} takes {kern}, occupancy {occ}")
+    occ5 = {shape: lk.backward_cluster_occupancy(*shape) for shape in lk.CLUSTER_SHAPES}
+    kern5, n5, rows5 = lk.backward_kernel(hid, BATCH)
+    waves5 = math.ceil(math.ceil(BATCH / rows5) / occ5[(n5, rows5)])
+    print(f"[stage 2 H 160] backward walk at B {BATCH}: {kern5} of {n5} CTAs for {rows5} row(s); the card holds "
+          f"at most {', '.join(f'{v} clusters of {k[0]} CTAs x {k[1]} rows' for k, v in occ5.items())} of its "
+          f"kernels at once, so B {BATCH} takes {waves5} wave(s); at B 3 {lk.backward_kernel(hid, 3)}")
+    if kern5 != "cluster" or min(occ5.values()) < 1:
+        fail(f"K5 at H 160, B {BATCH} takes {kern5}, occupancy {occ5}")
     config = load_yaml_with_includes(H160_CONFIG)
     margs = config["model"]["init_args"]
     kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
@@ -1349,19 +1374,29 @@ def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
         fail(f"H 160 LSTM parameters after a train step: card vs CPU max-abs {p_err}")
 
     # -- each kernel at the path's shapes, on the path's own data; K3 over
-    #    the val clip; the cluster forward's cycles a step beside its floor
+    #    the val clip; the cluster kernels' cycles a step beside their floor
     k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
     rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total, suffix="_h160")
     val = val_walk(lk, k3_val)
     rows[0]["val_step"] = val
+    by_kernel = device_ms_per_launch(lambda: lk.lstm_backward(*k5_args), 10)
+    walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_cluster" in k_)
+    if not walk_ms > 0:
+        fail(f"the profiler saw no cluster walk in K5 at H 160: {sorted(by_kernel)}")
     mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
     cyc = {k: times[k][0] / TBPTT_CHUNK * mhz * 1e3 for k in ("lstm_forward", "lstm_train_forward")}
-    print(f"[cycles a step at {mhz:.0f} MHz, H 160 B {BATCH}, clusters of {n} CTAs x {n_rows} rows in {waves} "
-          f"wave(s)] K3 {cyc['lstm_forward']:.0f} K4 {cyc['lstm_train_forward']:.0f}; the multiply-adds' floor "
-          f"{h160_fma_cycles(n, n_rows)} a step; K5 (generic) {times['lstm_backward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}")
-    for row, key in zip(rows, ("lstm_forward", "lstm_train_forward")):
-        row.update(cycles_per_step=cyc[key], cluster_ctas=n, cluster_rows=n_rows, waves=waves,
-                   occupancy={f"{k[0]}x{k[1]}": v for k, v in occ.items()})
+    cyc["lstm_backward"] = walk_ms / TBPTT_CHUNK * mhz * 1e3
+    print("[K5 H 160 by kernel, ms a launch (profiler, mean of the launches recorded)] " + "  ".join(
+        f"{k_}={v:.4f}" for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    print(f"[cycles a step at {mhz:.0f} MHz, H 160 B {BATCH}] forward: clusters of {n} CTAs x {n_rows} rows in "
+          f"{waves} wave(s), K3 {cyc['lstm_forward']:.0f} K4 {cyc['lstm_train_forward']:.0f}, the multiply-adds' "
+          f"floor {h160_fma_cycles(n, n_rows)} a step; K5's walk: clusters of {n5} CTAs x {rows5} rows in {waves5} "
+          f"wave(s), {cyc['lstm_backward']:.0f} (walk kernel {walk_ms:.4f} ms), floor {h160_fma_cycles(n5, rows5)}")
+    shapes = ((n, n_rows, waves, occ), (n, n_rows, waves, occ), (n5, rows5, waves5, occ5))
+    for row, key, (cn, cr, cw, co) in zip(rows, ("lstm_forward", "lstm_train_forward", "lstm_backward"), shapes):
+        row.update(cycles_per_step=cyc[key], fma_floor_cycles=h160_fma_cycles(cn, cr), cluster_ctas=cn,
+                   cluster_rows=cr, waves=cw, occupancy={f"{k[0]}x{k[1]}": v for k, v in co.items()})
+    rows[2]["walk_ms"] = walk_ms
     return rows, total["flanger"]
 
 

@@ -40,37 +40,45 @@
 // memory).  torch.nn.LSTM (cuDNN, no fc head) takes 0.54 ms forward and
 // 1.5-2.0 ms forward + backward at the same shape.
 //
-// Which kernels (ops/lstm_kernels.py::forward_plan / backward_kernel picks;
+// Which kernels (ops/lstm_kernels.py::forward_plan / backward_plan pick;
 // lstm_forward / lstm_backward launch that plan or refuse it):
 // H 16, 32 and 64 take the fast walks below (W_hh in registers, one barrier
 // a step, activations by ex2.approx / rcp.approx).  H 160, the shipped
-// chorus model's width, takes the cluster forward for K3 and K4: 4 H^2 =
-// 102,400 weights (400 KB) fit neither one SM's registers (640 threads x 160
-// weights) nor its shared memory, so each batch row is split over a
-// thread-block cluster of 4 or 8 CTAs that keep W_hh in their registers and
-// trade h through distributed shared memory (lstm_fwd_cluster_kernel); its
-// K5 is the generic walk.  Every other H <= 256 takes the generic walks (one
-// thread per gate column, W_hh in shared memory up to H 64-odd and through
-// L2 above, libm activations, two barriers a step forward and three
-// backward: 1.2 / 1.5 ms for K4 / K5 at H 64).  At H 160 (same card, same
-// script with --hidden 160): the generic K3 11.38 / K4 4.77 / K5 8.08 ms at
-// B 32, T 1024; the cluster forward K3 0.82 / K4 0.88 ms there (4 CTAs for
-// 2 rows, 16 clusters: the card holds 30 clusters of 4 or 15 of 8, so one
-// row a cluster would take two or three waves at B 32), 1520-1600 cycles a
-// step; at the serving shape (2, T) K3 0.0695 / 0.2558 / 1.0010 ms at T 128
-// / 512 / 2048 (8 CTAs a row, about 970 cycles a step, against the
-// multiply-adds' 100), where torch.nn.LSTM(2, 160) takes 0.63 / 2.33 / 9.14.
+// chorus model's width, takes the cluster kernels for K3, K4 and K5's walk:
+// 4 H^2 = 102,400 weights (400 KB) fit neither one SM's registers (640
+// threads x 160 weights) nor its shared memory, so each batch row is split
+// over a thread-block cluster of 4 or 8 CTAs that keep W_hh in their
+// registers and trade h (lstm_fwd_cluster_kernel) or the partial sums of
+// W_hh dgates (lstm_bwd_cluster_kernel) through distributed shared memory.
+// Every other H <= 256 takes the generic walks (one thread per gate column,
+// W_hh in shared memory up to H 64-odd and through L2 above, libm
+// activations, two barriers a step forward and three backward: 1.2 / 1.5 ms
+// for K4 / K5 at H 64).  At H 160 (same card, same script with --hidden
+// 160): the generic K3 11.37 / K4 4.80 / K5 8.05 ms at B 32, T 1024; the
+// cluster kernels K3 0.81 / K4 0.88 / K5 1.34-1.37 ms there (4 CTAs for 2
+// rows, 16 clusters: the card holds 30 clusters of 4, and 15 of 8 of the
+// forward, so one row a cluster would take two or three waves at B 32),
+// 1520-1710 cycles a forward step and 1900-1960 a backward one (K5's walk
+// 0.98-1.01 ms of it; the partial sums 0.27); at B 2 and 3 (T 1024) K5
+// 0.57-0.58 ms on 8 CTAs a row (walk 0.49, 942-952 cycles a step) against
+// 1.07 on 4 x 2; at the serving shape (2, T) K3 0.0693 / 0.2542 / 0.9949
+// ms at T 128 / 512 / 2048 (8 CTAs a row, about 970 cycles a step, against
+// the multiply-adds' 100), where torch.nn.LSTM(2, 160) takes 0.63 / 2.32 /
+// 9.09.
 // A step is latency: 8 CTAs a row instead of 4 halve the multiply-adds and
 // save 9%, while a second row on the cluster adds 500 cycles to 1060.
+// torch.nn.LSTM(2, 160) takes 19-25 ms forward + backward at (32, 1024)
+// and 19-24 its backward alone, from call to call.
 //
 // Registers and spills (ptxas -v for sm_90a), fast walks at
 // H 64 / 32 / 16: forward without saves (in_dim 2) 120 / 64 / 72, with saves
 // 160 / 72 / 96, in_dim read at run time 126-169; backward 128 / 116 / 95;
 // no spills but 8-12 bytes in the H 32 forward with saves.  Cluster forward
 // (in_dim 2, without / with saves): 8 CTAs x 1 row 119 / 118, 4 x 2 138 /
-// 142; in_dim read at run time 123-167.  Generic forward
-// 58-64, backward 32; partial sums 43 / 76 / 106 / 124 / 128 for kAIt 1 .. 5;
-// dseq 64.  No kernel spills otherwise.
+// 142; in_dim read at run time 123-167.  Cluster backward walk: 8 x 1 96,
+// 4 x 2 144 (30 clusters of either shape fit the card at once).  Generic
+// forward 58-64, backward 32; partial sums 43 / 76 / 106 / 124 / 128 for
+// kAIt 1 .. 5; dseq 64.  No kernel spills otherwise.
 //
 // What was tried and lost, same card and script: every thread one gate
 // column and all 64 rows of W_hh (16 16-byte broadcast loads a step, no
@@ -86,7 +94,9 @@
 // 0.36 ms, and the K4/K5 pair's gradients at the shipped weights were 1.0e-5
 // of the leaf's largest magnitude from the plain version's against 1.7e-5
 // with the fast ones: the order of the sums, not the activations, is most
-// of that distance.
+// of that distance.  K5's cluster walk on 8 CTAs for two rows (two CTAs an
+// SM, B 32 in one wave) was no faster than on 4 CTAs for two at B 32: a
+// second row costs the walk about as much at 8 CTAs as at 4.
 //
 // The weight gradients: the TPU kernel accumulates them in resident output
 // blocks across its sequential grid; blocks on the card run in parallel, so
@@ -1035,6 +1045,292 @@ __global__ void __launch_bounds__(4 * H) lstm_bwd_walk_fast_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K5 (1/4) at H 160: one thread-block cluster of N CTAs for R batch rows,
+// W_hh split over the cluster
+// ---------------------------------------------------------------------------
+// CTA r owns the U = H / N hidden units r U .. r U + U - 1 and their C = 4 U
+// gate columns (laid out [gate][unit] in shared memory), as in the cluster
+// forward.  The cell's backward is local to a unit: thread j < R C forms the
+// cotangent of column j % C of row j / C from dh = dh_run + dh_in, a_o, its
+// coefficient, gf and its own copy of dc_run, all formed for the chunk
+// before its walk (the fast walk's precompute).  The recurrent product
+// dh_{t-1} = W_hh dgates is the one step that crosses CTAs: CTA r keeps
+// W_hh[:, its C columns] in registers, the 8 lanes of an output quad (units
+// 4 g .. 4 g + 3) the columns in the vectors l + 8 i (kVec floats each), C /
+// 8 columns and 4 C / 8 weights a lane (80 at N 4, 40 at N 8).  A lane forms
+// four partial sums from the step's dgates (read from shared memory, the
+// lanes of a quad on neighbouring addresses), the fast kernel's two-stage
+// exchange and an xor-add over the lanes 4 apart leave lane l with unit 4 g
+// + (l & 3)'s partial over this CTA's columns, and lane l < 4 sends it by
+// st.async into the ring of the CTA that owns the unit, counted in bytes on
+// that CTA's mbarrier of the step's parity.  The owner waits for the step's
+// R x N x U partials and adds them in rank order, so the sum is the same
+// bits from launch to launch; one thread re-arms the barrier for the step
+// two ahead.  A CTA receives H floats a row a step, the forward's bytes.
+// Safety of the two ring slots and barrier phases: a CTA's product of step
+// n needs every CTA's partials of step n - 1, and a CTA sends its partials
+// of step n only after the block barrier that follows its reads of step n -
+// 1's slot, so no slot is written while it may still be read and no phase
+// is reached twice ahead of a waiter (no warp of the cluster is more than
+// one step ahead of any other).  The last step's partials are dh0.  The
+// chunk's gate cotangents stay in shared memory and go out at its end, 16
+// bytes a store.  A row past the batch (odd B) walks the last row again and
+// writes nothing.
+template <int H, int N, int R>
+__global__ void __launch_bounds__(2 * H, 1) lstm_bwd_cluster_kernel(
+    const float* __restrict__ gates, const float* __restrict__ cs,
+    const float* __restrict__ c0, const float* __restrict__ w_hh,
+    const float* __restrict__ dh_in, const float* __restrict__ dhn,
+    const float* __restrict__ dcn, float* __restrict__ dgates,
+    float* __restrict__ dh0, float* __restrict__ dc0, int batch, int t_len) {
+  extern __shared__ float4 smem4[];
+  __shared__ alignas(8) unsigned long long bars[2];  // partials of steps n with n & 1 = 0, 1
+  constexpr int G4 = 4 * H;
+  constexpr int U = H / N;                 // units of this CTA
+  constexpr int U4 = U / 4;
+  constexpr int C = 4 * U;                 // gate columns of this CTA
+  constexpr int kThreads = 2 * H;
+  constexpr int kLanes = 8;                // lanes of an output quad
+  constexpr int kKI = C / kLanes;          // columns a lane multiplies
+  constexpr int kVec = kKI % 4 == 0 ? 4 : 2;
+  constexpr int kNv = kKI / kVec;          // loads of dgates a lane a step
+  constexpr int kChunk = kBwdChunk / R;    // steps staged a pass
+  constexpr int kCells = R * C;            // threads of the cell's backward
+  constexpr unsigned kFull = 0xffffffffu;
+  static_assert(H % N == 0 && U % 4 == 0 && kThreads == kLanes * H / 4 && kKI % kVec == 0 &&
+                kCells <= kThreads, "cluster split");
+  const int j = threadIdx.x;
+  const int r = static_cast<int>(cluster_rank());
+  const int row0 = static_cast<int>(cluster_id()) * R;
+  auto row_of = [&](int rr) { return min(row0 + rr, batch - 1); };
+  auto valid = [&](int rr) { return row0 + rr < batch; };
+  float* g_st = reinterpret_cast<float*>(smem4);  // [2][R][kChunk][C] staged gate activations
+  float* c_st = g_st + 2 * R * kChunk * C;         // [2][R][kChunk + 1][U] c_{t0-1} .. c_{t0+n-1}
+  float* d_st = c_st + 2 * R * (kChunk + 1) * U;   // [2][R][kChunk][U] dh_in
+  float* coef_s = d_st + 2 * R * kChunk * U;       // [R][kChunk][C] coefficients
+  float* ao_s = coef_s + R * kChunk * C;           // [R][kChunk][U] go (1 - tanh(c_t)^2)
+  float* gf_s = ao_s + R * kChunk * U;             // [R][kChunk][U] the forget gate
+  float* dg_s = gf_s + R * kChunk * U;             // [R][kChunk][C] the chunk's gate cotangents
+  float* part = dg_s + R * kChunk * C;             // [2][R][N][U] partial dh from each CTA
+
+  // the product: lane l of quad g, outputs 4 g .. 4 g + 3
+  const int g = j / kLanes, l = j % kLanes;
+  const bool odd = (l & 1) != 0, high = (l & 2) != 0;
+  float w[4][kKI];  // [o][kVec i + e] = W_hh[4 g + o, the column of c = kVec (l + 8 i) + e]
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+#pragma unroll
+    for (int i = 0; i < kNv; ++i) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int c = kVec * (l + kLanes * i) + e;
+        w[o][kVec * i + e] = w_hh[(4 * g + o) * G4 + (c / U) * H + r * U + c % U];
+      }
+    }
+  }
+  // the cell: column cc (gate q, unit ul) of row rc
+  const bool cell = j < kCells;
+  const int rc = cell ? j / C : 0;
+  const int cc = j % C;
+  const int q = cc / U, ul = cc % U;
+  float dh_run = 0.0f, dc_run = 0.0f;
+  if (cell) {
+    dh_run = dhn[row_of(rc) * H + r * U + ul];
+    dc_run = dcn[row_of(rc) * H + r * U + ul];
+  }
+
+  auto stage = [&](int ci, int buf) {
+    const int t0 = ci * kChunk;
+    const int n = min(kChunk, t_len - t0);
+    float* gd = g_st + buf * R * kChunk * C;
+    for (int i = j; i < R * n * 4 * U4; i += kThreads) {
+      const int p = i % U4, qq = (i / U4) % 4, rt = i / (4 * U4);
+      const int rr = rt / n, tt = rt - rr * n;
+      cp_async16(gd + (rr * kChunk + tt) * C + qq * U + 4 * p,
+                 gates + (static_cast<size_t>(row_of(rr)) * t_len + t0 + tt) * G4 + qq * H + r * U + 4 * p);
+    }
+    float* cd = c_st + buf * R * (kChunk + 1) * U;
+    for (int i = j; i < R * (n + 1) * U4; i += kThreads) {
+      const int p = i % U4, rt = i / U4;
+      const int rr = rt / (n + 1), tt = rt - rr * (n + 1);
+      const int t = t0 + tt - 1;
+      const float* src = t < 0 ? c0 + static_cast<size_t>(row_of(rr)) * H
+                               : cs + (static_cast<size_t>(row_of(rr)) * t_len + t) * H;
+      cp_async16(cd + (rr * (kChunk + 1) + tt) * U + 4 * p, src + r * U + 4 * p);
+    }
+    float* dd = d_st + buf * R * kChunk * U;
+    for (int i = j; i < R * n * U4; i += kThreads) {
+      const int p = i % U4, rt = i / U4;
+      const int rr = rt / n, tt = rt - rr * n;
+      cp_async16(dd + (rr * kChunk + tt) * U + 4 * p,
+                 dh_in + (static_cast<size_t>(row_of(rr)) * t_len + t0 + tt) * H + r * U + 4 * p);
+    }
+    cp_async_commit();
+  };
+
+  // What a step needs beside the running cotangents (as in the fast walk),
+  //   dc = dc_run + dh a_o;  dg = (q == 3 ? dh : dc) coef;  dc_run = dc gf
+  // with a_o = go (1 - tanh(c_t)^2) and coef = gg gi (1 - gi), c_{t-1} gf (1 - gf),
+  // gi (1 - gg^2), tanh(c_t) go (1 - go) for q = 0 .. 3, for the whole chunk
+  auto precompute = [&](int buf, int n) {
+    const float* gb = g_st + buf * R * kChunk * C;
+    const float* cb = c_st + buf * R * (kChunk + 1) * U;
+    for (int i = j; i < R * n * C; i += kThreads) {
+      const int c = i % C, rt = i / C;
+      const int rr = rt / n, tt = rt - rr * n;
+      const int qq = c / U, uu = c % U;
+      const float* ga = gb + (rr * kChunk + tt) * C + uu;
+      const float gi = ga[0], gf = ga[U], gg = ga[2 * U], go = ga[3 * U];
+      const float cp = cb[(rr * (kChunk + 1) + tt) * U + uu];
+      const float tc = tanh_fast(cb[(rr * (kChunk + 1) + tt + 1) * U + uu]);
+      const float act = ga[qq * U];
+      const float other = qq == 0 ? gg : qq == 1 ? cp : qq == 2 ? gi : tc;
+      coef_s[(rr * kChunk + tt) * C + c] = other * (1.0f - act) * (qq == 2 ? 1.0f + act : act);
+      if (qq == 0) ao_s[(rr * kChunk + tt) * U + uu] = go * (1.0f - tc * tc);
+      if (qq == 1) gf_s[(rr * kChunk + tt) * U + uu] = gf;
+    }
+  };
+
+  const unsigned bar_loc = smem_addr(bars);
+  constexpr unsigned kStepBytes = R * 4 * H;   // what lands in each CTA a step
+  constexpr unsigned kSlotBytes = 4 * R * N * U;
+  if (j == 0) {
+    mbar_init(bar_loc, 1);
+    mbar_init(bar_loc + 8, 1);
+    mbar_expect_tx(bar_loc, kStepBytes);
+    if (t_len > 1) mbar_expect_tx(bar_loc + 8, kStepBytes);
+  }
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
+  stage(n_chunks - 1, 0);
+  cp_async_wait_all();
+  // every CTA of the cluster has started and holds its barriers before the
+  // first remote store (this also stands for the block's barrier)
+  cluster_arrive();
+  cluster_wait();
+  // byte addresses in shared memory of what the step loop touches
+  const int k_out = 4 * g + (l & 3);  // the unit whose partial this lane sends (l < 4)
+  const unsigned part_loc = smem_addr(part);
+  const unsigned part_wr = mapa(part_loc + 4 * (r * U + k_out % U), k_out / U);
+  const unsigned bar_rem = mapa(bar_loc, k_out / U);
+  const unsigned part_rd = part_loc + 4 * (rc * N * U + ul);
+  const unsigned dg_rd = smem_addr(dg_s) + 4 * kVec * l;
+  const unsigned dg_wr = smem_addr(dg_s) + 4 * (rc * kChunk * C + cc);
+  const unsigned coef_rd = smem_addr(coef_s) + 4 * (rc * kChunk * C + cc);
+  const unsigned ao_rd = smem_addr(ao_s) + 4 * (rc * kChunk * U + ul);
+  const unsigned gf_rd = smem_addr(gf_s) + 4 * (rc * kChunk * U + ul);
+  const unsigned dhin_rd = smem_addr(d_st) + 4 * (rc * kChunk * U + ul);
+  int step = 0;  // steps walked so far: step n is t = t_len - 1 - n
+  int sb = 0;    // staging buffer of this chunk
+  for (int ci = n_chunks - 1; ci >= 0; --ci, sb ^= 1) {
+    const int t0 = ci * kChunk;
+    const int n = min(kChunk, t_len - t0);
+    if (ci > 0) stage(ci - 1, sb ^ 1);
+    precompute(sb, n);
+    __syncthreads();
+    const unsigned dq = dhin_rd + 4 * sb * R * kChunk * U;
+    float coef = 0.0f, a_o = 0.0f, gf = 0.0f, dhi = 0.0f;
+    if (cell) {
+      coef = lds32(coef_rd + 4 * C * (n - 1));
+      a_o = lds32(ao_rd + 4 * U * (n - 1));
+      gf = lds32(gf_rd + 4 * U * (n - 1));
+      dhi = lds32(dq + 4 * U * (n - 1));
+    }
+    for (int tt = n - 1; tt >= 0; --tt, ++step) {
+      if (cell) {
+        if (step > 0) {  // the partials of step - 1 have all landed here
+          const int m = step - 1;
+          mbar_wait_cluster(bar_loc + 8 * (m & 1), (m >> 1) & 1);
+          if (j == 0 && m + 2 < t_len) mbar_expect_tx(bar_loc + 8 * (m & 1), kStepBytes);
+          const unsigned pr = part_rd + kSlotBytes * (m & 1);
+          float s = lds32(pr);
+#pragma unroll
+          for (int src = 1; src < N; ++src) s += lds32(pr + 4 * U * src);
+          dh_run = s;
+        }
+        const float dh = dh_run + dhi;
+        const float dc = fmaf(dh, a_o, dc_run);
+        const float dg = (q == 3 ? dh : dc) * coef;
+        dc_run = dc * gf;
+        sts32(dg_wr + 4 * C * tt, dg);
+      }
+      __syncthreads();
+      if (cell) {  // the next step's operands arrive under the product
+        const int tn = max(tt - 1, 0);
+        coef = lds32(coef_rd + 4 * C * tn);
+        a_o = lds32(ao_rd + 4 * U * tn);
+        gf = lds32(gf_rd + 4 * U * tn);
+        dhi = lds32(dq + 4 * U * tn);
+      }
+      // each phase for all R rows at once, so that the rows' chains overlap
+      float dv[R][kKI];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const unsigned ra = dg_rd + 4 * (rr * kChunk + tt) * C;
+#pragma unroll
+        for (int i = 0; i < kNv; ++i) {
+          if constexpr (kVec == 4) {
+            const float4 v = lds128(ra + 16 * kLanes * i);
+            dv[rr][4 * i] = v.x;
+            dv[rr][4 * i + 1] = v.y;
+            dv[rr][4 * i + 2] = v.z;
+            dv[rr][4 * i + 3] = v.w;
+          } else {
+            const float2 v = lds64(ra + 8 * kLanes * i);
+            dv[rr][2 * i] = v.x;
+            dv[rr][2 * i + 1] = v.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;  // units 4 g .. 4 g + 3 over this lane's columns
+#pragma unroll
+        for (int i = 0; i < kKI; ++i) {
+          p0 = fmaf(w[0][i], dv[rr][i], p0);
+          p1 = fmaf(w[1][i], dv[rr][i], p1);
+          p2 = fmaf(w[2][i], dv[rr][i], p2);
+          p3 = fmaf(w[3][i], dv[rr][i], p3);
+        }
+        // lane l ends with unit 4 g + (l & 3) over the four lanes l & ~3 ..
+        // (as in the forward), then the lanes 4 apart add theirs
+        float k0 = odd ? p1 : p0, k1 = odd ? p3 : p2;
+        k0 += __shfl_xor_sync(kFull, odd ? p0 : p1, 1);
+        k1 += __shfl_xor_sync(kFull, odd ? p2 : p3, 1);
+        float a = high ? k1 : k0;
+        a += __shfl_xor_sync(kFull, high ? k0 : k1, 2);
+        a += __shfl_xor_sync(kFull, a, 4);
+        st_async_if(l < 4, part_wr + kSlotBytes * (step & 1) + 4 * rr * N * U, a, bar_rem + 8 * (step & 1));
+      }
+    }
+    __syncthreads();  // the chunk's cotangents are all in dg_s
+    for (int i = j; i < R * n * 4 * U4; i += kThreads) {  // this CTA's columns, 16 bytes a store
+      const int p = i % U4, qq = (i / U4) % 4, rt = i / (4 * U4);
+      const int rr = rt / n, tt = rt - rr * n;
+      if (!valid(rr)) continue;
+      reinterpret_cast<float4*>(dgates + (static_cast<size_t>(row_of(rr)) * t_len + t0 + tt) * G4 + qq * H +
+                                r * U)[p] = reinterpret_cast<const float4*>(dg_s + (rr * kChunk + tt) * C + qq * U)[p];
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (cell && q == 0) {  // the last step's partials are dh0
+    const int m = t_len - 1;
+    mbar_wait_cluster(bar_loc + 8 * (m & 1), (m >> 1) & 1);
+    const unsigned pr = part_rd + kSlotBytes * (m & 1);
+    float s = lds32(pr);
+#pragma unroll
+    for (int src = 1; src < N; ++src) s += lds32(pr + 4 * U * src);
+    if (valid(rc)) {
+      dh0[row_of(rc) * H + r * U + ul] = s;
+      dc0[row_of(rc) * H + r * U + ul] = dc_run;
+    }
+  }
+  // no CTA leaves while its peers' stores to it may be in flight
+  cluster_arrive();
+  cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
 // K5 (1/4), any H <= kMaxHidden: one thread per gate column
 // ---------------------------------------------------------------------------
 // Reads K4's saved gate activations as well (each thread brings its own a
@@ -1364,6 +1660,12 @@ int fwd_cluster_smem_floats(int hid, int n, int rows, int in_dim, int out_ch, bo
                  2 * (in_dim + out_ch) * chunk);
 }
 
+int bwd_cluster_smem_floats(int hid, int n, int rows) {
+  const int u = hid / n;
+  const int chunk = kBwdChunk / rows;
+  return rows * (4 * chunk * 4 * u + 2 * (chunk + 1) * u + 4 * chunk * u + 2 * hid);
+}
+
 bool is_fast_width(int hid) { return hid == 16 || hid == 32 || hid == 64; }
 
 template <typename Kernel>
@@ -1485,6 +1787,40 @@ cudaError_t launch_walk_fast(const WalkArgs& a) {
   return cudaGetLastError();
 }
 
+// The cluster walk of K5: launched, or with `max_clusters` the most of its
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters) instead.
+template <int H, int N, int R>
+cudaError_t launch_walk_cluster_nr(const WalkArgs& a, int* max_clusters) {
+  auto kernel = lstm_bwd_cluster_kernel<H, N, R>;
+  const int bytes = bwd_cluster_smem_floats(H, N, R) * static_cast<int>(sizeof(float));
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.batch + R - 1) / R * N);
+  cfg.blockDim = dim3(2 * H);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kernel, a.gates, a.cs, a.c0, a.w_hh, a.dh_in, a.dhn, a.dcn, a.dgates,
+                         a.dh0, a.dc0, a.batch, a.t_len);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// (CTAs a cluster, rows a cluster): (8, 1) or (4, 2), as the forward
+cudaError_t launch_walk_cluster(const WalkArgs& a, int n, int* max_clusters) {
+  constexpr int H = kClusterHidden;
+  return n == 8 ? launch_walk_cluster_nr<H, 8, 1>(a, max_clusters)
+                : launch_walk_cluster_nr<H, 4, 2>(a, max_clusters);
+}
+
 struct WgradArgs {
   const float *dgates, *hs, *h0, *seq;
   float* partial;
@@ -1561,10 +1897,23 @@ int lstm_cluster_occupancy(int cluster, int cluster_rows, int in_dim, int out_ch
                                     : launch_fwd_cluster<false>(a, cluster, out));
 }
 
-// K5.  registers != 0: the register-resident walk (H 16/32/64 only, else
-// refused), 0: the generic walk.  gates: K4's saved activations.  dgates:
-// (batch * t_len, 4H) scratch; w_hh_t: (4H, H) scratch, needed only by the
-// generic walk (may be null with registers);
+// The most clusters of `cluster` CTAs for `cluster_rows` rows of the H 160
+// backward walk (K5) that the card holds at once, in *out.  Returns a
+// cudaError_t.
+int lstm_bwd_cluster_occupancy(int cluster, int cluster_rows, int* out) {
+  if (!is_cluster_shape(cluster, cluster_rows)) return static_cast<int>(cudaErrorInvalidValue);
+  WalkArgs a{};
+  a.batch = 1;
+  a.t_len = 1;
+  return static_cast<int>(launch_walk_cluster(a, cluster, out));
+}
+
+// K5, on the caller's plan: cluster > 0, the cluster walk, `cluster` CTAs
+// for `cluster_rows` batch rows (8 for 1 or 4 for 2, H 160 only); registers
+// != 0, the register-resident walk (H 16/32/64 only); both 0, the generic
+// walk.  A plan the kernels lack is refused.  gates: K4's saved
+// activations.  dgates: (batch * t_len, 4H) scratch; w_hh_t: (4H, H)
+// scratch, needed only by the generic walk (may be null otherwise);
 // partial: (n_slices, na, 4H) scratch; dwcat: (na, 4H) out, rows
 // [dW_hh (H) | dW_ih (in_dim) | db]; dseq (B, in_dim, T), dh0/dc0 (B, H) out.
 // na = H + in_dim + 1.
@@ -1573,9 +1922,10 @@ int lstm_backward(const float* seq, const float* hs, const float* cs, const floa
                   const float* dh_in, const float* dhn, const float* dcn, float* dgates,
                   float* w_hh_t, float* partial, float* dwcat, float* dseq, float* dh0, float* dc0,
                   int batch, int t_len, int hid, int in_dim, int n_slices,
-                  int rows_per_slice, int registers, void* stream) {
+                  int rows_per_slice, int registers, int cluster, int cluster_rows, void* stream) {
   if (hid < 1 || hid > kMaxHidden || in_dim < 1 || in_dim > kMaxIn || t_len < 1 ||
-      (registers != 0 && !is_fast_width(hid))) {
+      (registers != 0 && !is_fast_width(hid)) ||
+      (cluster != 0 && (registers != 0 || hid != kClusterHidden || !is_cluster_shape(cluster, cluster_rows)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_rows = batch * t_len;
@@ -1584,10 +1934,12 @@ int lstm_backward(const float* seq, const float* hs, const float* cs, const floa
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (registers != 0) {
-    const WalkArgs a{gates, cs, c0, w_hh, dh_in, dhn, dcn, dgates, dh0, dc0, batch, t_len, s};
-    e = hid == 16 ? launch_walk_fast<16>(a)
-                  : hid == 32 ? launch_walk_fast<32>(a) : launch_walk_fast<64>(a);
+  const WalkArgs wk{gates, cs, c0, w_hh, dh_in, dhn, dcn, dgates, dh0, dc0, batch, t_len, s};
+  if (cluster != 0) {
+    e = launch_walk_cluster(wk, cluster, nullptr);
+  } else if (registers != 0) {
+    e = hid == 16 ? launch_walk_fast<16>(wk)
+                  : hid == 32 ? launch_walk_fast<32>(wk) : launch_walk_fast<64>(wk);
   } else {
     bool whh_in_smem = true;
     int bytes = bwd_smem_floats(hid, true) * static_cast<int>(sizeof(float));

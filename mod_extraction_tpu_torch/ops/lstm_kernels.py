@@ -21,13 +21,14 @@ nor the pre-activations.
 Which kernel a width takes on the card (`forward_kernel`, `backward_kernel`;
 `csrc/lstm.cu` says how they differ): H 16, 32 and 64 the kernels whose
 recurrent weights stay in registers (K3, K4 and K5); H 160, the shipped
-chorus model's width, a forward (K3, K4) that runs the batch as
-thread-block clusters with W_hh split over their CTAs' registers, 8 CTAs
-for one row or 4 for two as the batch allows (`cluster_shape`), and the
-generic backward; every other H <= 256 the generic kernels.  The plan is
-made here and passed to the library, which launches it or refuses it.
-`ALLOW_FAST = False` keeps every width on the generic kernels, for
-comparisons only.
+chorus model's width, a forward (K3, K4) and a backward walk (K5) that run
+the batch as thread-block clusters with W_hh split over their CTAs'
+registers, 8 CTAs for one row or 4 for two as the batch allows
+(`cluster_shape`; the forward trades h, the backward the partial sums of
+W_hh dgates); every other H <= 256 the generic kernels.  The plans
+(`forward_plan`, `backward_plan`) are made here and passed to the library,
+which launches them or refuses them.  `ALLOW_FAST = False` keeps every
+width on the generic kernels, for comparisons only.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version (the tests), a CUDA tensor launches the kernel or raises.  There is
@@ -64,9 +65,9 @@ WGRAD_MAX_SLICES = 128
 ALLOW_FAST = True
 #: Widths of the register-resident kernels (K3, K4, K5).
 FAST_WIDTHS = (16, 32, 64)
-#: The width of the cluster forward (K3, K4).
+#: The width of the cluster kernels (K3, K4, K5).
 CLUSTER_HIDDEN = 160
-#: (CTAs, batch rows) of the cluster forward's kernels.
+#: (CTAs, batch rows) of the cluster kernels.
 CLUSTER_SHAPES = ((8, 1), (4, 2))
 
 _lib = None
@@ -89,13 +90,15 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_forward.argtypes = [p] * 15 + [i] * 8 + [p]
         lib.lstm_forward.restype = i
-        lib.lstm_backward.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.lstm_backward.argtypes = [p] * 18 + [i] * 9 + [p]
         lib.lstm_backward.restype = i
         for limit in (lib.lstm_max_in_dim, lib.lstm_max_hidden):
             limit.argtypes = []
             limit.restype = i
         lib.lstm_cluster_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.lstm_cluster_occupancy.restype = i
+        lib.lstm_bwd_cluster_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lstm_bwd_cluster_occupancy.restype = i
         _lib = lib
     return _lib
 
@@ -106,7 +109,7 @@ def _sm_count(index: int) -> int:
 
 
 def cluster_shape(batch: int, n_sms: int) -> Tuple[int, int]:
-    """(CTAs, batch rows) a cluster of the H 160 forward: 8 CTAs (100 cycles
+    """(CTAs, batch rows) a cluster of the H 160 kernels: 8 CTAs (100 cycles
     of a step's multiply-adds each) for one row while a cluster for every
     row fits one wave, else 4 CTAs for two rows.  The clusters of a wave
     fill at most 15/16 of the SMs: the GPCs' SM counts leave the rest (the
@@ -129,19 +132,34 @@ def forward_plan(batch: int, hid: int, n_sms: int) -> Tuple[str, int, int]:
     return "generic", 1, 1
 
 
-def forward_kernel(hid: int, batch: int, device=None) -> Tuple[str, int, int]:
-    """`forward_plan` on the current (or given) CUDA device; ("generic", 1,
-    1) with `ALLOW_FAST` off."""
+def backward_plan(batch: int, hid: int, n_sms: int) -> Tuple[str, int, int]:
+    """The backward walk (K5) that a launch of `batch` rows at width `hid`
+    takes on a card of `n_sms` SMs: the forward's plan.  At the batches the
+    paths send, the same cluster shape wins for the walk (H100: at B 2 and
+    3, T 1024, 8 CTAs a row 0.58 ms against 1.08 for 4 x 2; at B 32, 4 x 2
+    1.35 against 1.45 for 8 x 1, which takes two waves: the card holds 30
+    of the walk's clusters of either shape).  A pure function of its
+    arguments."""
+    return forward_plan(batch, hid, n_sms)
+
+
+def _plan_on_card(plan, hid: int, batch: int, device) -> Tuple[str, int, int]:
     if not ALLOW_FAST:
         return "generic", 1, 1
     index = getattr(device, "index", None)
-    return forward_plan(batch, hid, _sm_count(torch.cuda.current_device() if index is None else index))
+    return plan(batch, hid, _sm_count(torch.cuda.current_device() if index is None else index))
 
 
-def backward_kernel(hid: int) -> str:
-    """The backward kernel (K5) of a width: "registers" at H 16/32/64,
-    "generic" otherwise or with `ALLOW_FAST` off."""
-    return "registers" if ALLOW_FAST and hid in FAST_WIDTHS else "generic"
+def forward_kernel(hid: int, batch: int, device=None) -> Tuple[str, int, int]:
+    """`forward_plan` on the current (or given) CUDA device; ("generic", 1,
+    1) with `ALLOW_FAST` off."""
+    return _plan_on_card(forward_plan, hid, batch, device)
+
+
+def backward_kernel(hid: int, batch: int, device=None) -> Tuple[str, int, int]:
+    """`backward_plan` on the current (or given) CUDA device; ("generic", 1,
+    1) with `ALLOW_FAST` off."""
+    return _plan_on_card(backward_plan, hid, batch, device)
 
 
 def cluster_occupancy(n: int, rows: int, save: bool, in_dim: int = 2, out_ch: int = 1) -> int:
@@ -151,6 +169,13 @@ def cluster_occupancy(n: int, rows: int, save: bool, in_dim: int = 2, out_ch: in
     out = ctypes.c_int(0)
     _check(_load().lstm_cluster_occupancy(n, rows, in_dim, out_ch, int(save), ctypes.byref(out)),
            "cluster occupancy")
+    return out.value
+
+
+def backward_cluster_occupancy(n: int, rows: int) -> int:
+    """As `cluster_occupancy`, for the H 160 backward walk (K5)."""
+    out = ctypes.c_int(0)
+    _check(_load().lstm_bwd_cluster_occupancy(n, rows, ctypes.byref(out)), "cluster occupancy")
     return out.value
 
 
@@ -217,12 +242,13 @@ def lstm_forward_plain(seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_states
     return y, h, c
 
 
-def lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
+def lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn, with_dgates: bool = False):
     """Plain PyTorch version of K5: reverse-time BPTT of the recurrence
     from the saved states and gate activations, with dh_in (B, T, H) the
     cotangent that the fc head sends into each step's h and (dhn, dcn) that
     of the final state.  Returns dseq (B, in_dim, T), dh0, dc0 (B, H),
-    dw_ih (in_dim, 4H), dw_hh (H, 4H), db (4H,).  A Python loop over time."""
+    dw_ih (in_dim, 4H), dw_hh (H, 4H), db (4H,) [, with `with_dgates` the
+    walk's gate cotangents (B, T, 4H)].  A Python loop over time."""
     hid = w_hh.shape[0]
     hprev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
     cprev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
@@ -248,7 +274,8 @@ def lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)
     dseq = torch.einsum("btj,ij->bit", dgates, w_ih)
     dw_ih = torch.einsum("bit,btj->ij", seq, dgates)
     dw_hh = torch.einsum("bth,btj->hj", hprev, dgates)
-    return dseq, dh_run, dc_run, dw_ih, dw_hh, dgates.sum(dim=(0, 1))
+    out = (dseq, dh_run, dc_run, dw_ih, dw_hh, dgates.sum(dim=(0, 1)))
+    return (*out, dgates) if with_dgates else out
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +378,14 @@ def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
     reverse walk, then the fixed-order weight-gradient reduction and dseq."""
     if seq.device.type == "cpu":
         return lstm_backward_plain(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)
+    return _backward_launch(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn)[:6]
+
+
+def _backward_launch(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn, plan=None):
+    """K5 on the card, on `backward_kernel`'s plan unless `plan` (kernel,
+    CTAs, rows) names another (benchmarks: each cluster shape at one batch):
+    `lstm_backward_plain`'s outputs and the walk's gate cotangents (B, T,
+    4H), a view of the scratch the weight-gradient reduction reads."""
     bsz, in_dim, t = seq.shape
     hid = w_hh.shape[0]
     state, steps = (bsz, hid), (bsz, t, hid)
@@ -368,9 +403,9 @@ def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
     na = hid + in_dim + 1
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty(n_rows, 4 * hid, **f32)
-    registers = backward_kernel(hid) == "registers"
+    kernel, n, rows = plan or backward_kernel(hid, bsz, dev)
     # the generic walk reads W_hh transposed where it does not fit shared memory
-    w_hh_t = None if registers else torch.empty(4 * hid, hid, **f32)
+    w_hh_t = torch.empty(4 * hid, hid, **f32) if kernel == "generic" else None
     partial = torch.empty(n_slices, na, 4 * hid, **f32)
     dwcat = torch.empty(na, 4 * hid, **f32)
     dseq = torch.empty(bsz, in_dim, t, **f32)
@@ -381,12 +416,13 @@ def lstm_backward(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn):
         lib.lstm_backward(
             *(a.data_ptr() for a in args), dgates.data_ptr(), _ptr(w_hh_t), partial.data_ptr(),
             dwcat.data_ptr(), dseq.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(registers),
-            torch.cuda.current_stream(dev).cuda_stream,
+            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(kernel == "registers"),
+            n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
         ),
         "lstm_backward",
     )
-    return dseq, dh0, dc0, dwcat[hid : hid + in_dim], dwcat[:hid], dwcat[hid + in_dim]
+    return (dseq, dh0, dc0, dwcat[hid : hid + in_dim], dwcat[:hid], dwcat[hid + in_dim],
+            dgates.view(bsz, t, 4 * hid))
 
 
 # ---------------------------------------------------------------------------

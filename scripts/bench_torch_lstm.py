@@ -12,15 +12,18 @@ judged in under a minute.
 
     python3 scripts/bench_torch_lstm.py [--batch 32] [--steps 1024] [--hidden 64] [--long 86016] [--skip-checks]
 
-`--hidden 160` checks and times the cluster forward at the width of the
-shipped chorus model in each of its cluster shapes
+`--hidden 160` checks and times the cluster kernels at the width of the
+shipped chorus model in each of their cluster shapes
 (`lstm_kernels.CLUSTER_SHAPES`, each launched at every batch, the one
-`cluster_shape` picks timed twice), beside the generic kernels and the
-library, at the TBPTT shape and at the serving shapes (2, 128 / 512 / 2048,
-queued: calls issued behind a spin, so that the events time the card); it
-also prints ptxas's registers and spills of the cluster kernels and how
-many clusters of each shape the card holds at once.  `--long 0` leaves the
-long walk out.
+`cluster_shape` picks timed twice): the forward (K3, K4) beside the generic
+kernels and the library at the TBPTT shape and at the serving shapes (2,
+128 / 512 / 2048, queued: calls issued behind a spin, so that the events
+time the card), and K5 with its cluster walk at B 2, 3 and the TBPTT batch
+(T 1024) beside the generic walk (`ALLOW_FAST` off) and the library's
+forward + backward and backward alone, with the walk's device time and
+cycles a step; it also prints ptxas's registers and spills of the cluster
+kernels and how many clusters of each shape the card holds at once.
+`--long 0` leaves the long walk out.
 
 Needs a CUDA device; imports torch and the port only.
 """
@@ -76,7 +79,8 @@ def cluster_report(rng, b: int, t: int) -> None:
         occ = {save: lk.cluster_occupancy(*shape, save) for save in (False, True)}
         picked = [bb for bb in range(1, 257) if lk.cluster_shape(bb, n_sms) == shape]
         print(f"[cluster occupancy, {shape[0]} CTAs x {shape[1]} rows] at most {occ[False]} clusters (K3) / "
-              f"{occ[True]} (K4) at once on {n_sms} SMs; the rule picks it for B {picked[0]}-{picked[-1]}")
+              f"{occ[True]} (K4) / {lk.backward_cluster_occupancy(*shape)} (K5's walk) at once on {n_sms} SMs; "
+              f"the rule picks it for B {picked[0]}-{picked[-1]}")
     cases = [(5, 300, 2), (1, 1, 2), (2, 2048, 2), (b, t, 2), (3, 130, 3), (31, 65, 3)]
     inputs = [cs.lstm_inputs(rng, bb, tt, 160, in_dim=i) for bb, tt, i in cases]
     for shape in lk.CLUSTER_SHAPES:
@@ -89,6 +93,76 @@ def cluster_report(rng, b: int, t: int) -> None:
             if not err <= cs.KERNEL_TOL:
                 cs.fail(f"the cluster forward {shape} at B={bb} T={tt} in_dim={i} disagrees with its "
                         f"plain version: {err}")
+    # K5's cluster walk in each shape: every output and the walk's gate
+    # cotangents within 5e-4 of their largest magnitude, two launches the same bits
+    for shape in lk.CLUSTER_SHAPES:
+        for (bb, tt, i), a in zip(cases, inputs):
+            bargs = backward_args(a)
+            got = lk._backward_launch(*bargs, plan=("cluster", *shape))
+            again = lk._backward_launch(*bargs, plan=("cluster", *shape))
+            err = max(cs.rel_err(x, y) for x, y in zip(got, lk.lstm_backward_plain(*bargs, with_dgates=True)))
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            print(f"[LSTM B={bb} T={tt} H=160 in_dim={i}, cluster {shape}] K5 max_rel={err:.3e} "
+                  f"relaunch bit-identical: {same}")
+            if not (err <= cs.GRAD_REL and same):
+                cs.fail(f"K5's cluster walk {shape} at B={bb} T={tt} in_dim={i}: {err}, same bits {same}")
+
+
+def backward_args(a: dict, seed: int = 0) -> tuple:
+    """K5's arguments for K3/K4 inputs `a`: K4's saved tensors and random
+    cotangents."""
+    b, _, t = a["seq"].shape
+    hid = a["w_hh"].shape[0]
+    _, _, _, hs, cs_, gates = lk.lstm_train_forward(**a)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dh_in = torch.randn(b, t, hid, device="cuda", generator=gen)
+    dhn, dcn = (torch.randn(b, hid, device="cuda", generator=gen) for _ in range(2))
+    return (a["seq"], hs, cs_, gates, a["h0"], a["c0"], a["w_ih"], a["w_hh"], dh_in, dhn, dcn)
+
+
+def time_cluster_backward(rng, t: int, batches: tuple) -> None:
+    """K5 at H 160, T `t`, for each batch: the cluster walk in each shape
+    (the rule's twice), the generic walk and `torch.nn.LSTM`'s forward +
+    backward and backward alone, in turns (medians of 5 x 20 calls); then
+    the rule's walk kernel by device time and its cycles a step beside the
+    multiply-adds' floor."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = None
+    for bb in batches:
+        a = cs.lstm_inputs(rng, bb, t, 160)
+        bargs = backward_args(a)
+        lib = cs.library_lstm(a["w_ih"], a["w_hh"], a["b"])
+        state = (a["h0"][None].contiguous(), a["c0"][None].contiguous())
+        seq_grad = a["seq"].permute(2, 0, 1).contiguous().requires_grad_()
+
+        def lib_fwd_bwd():
+            out, _ = lib(seq_grad, state)
+            out.sum().backward()
+
+        kept, _ = lib(seq_grad, state)
+        leaves, ones = [seq_grad, *lib.parameters()], torch.ones_like(kept)
+
+        def lib_bwd():
+            torch.autograd.grad(kept, leaves, ones, retain_graph=True)
+
+        rule = lk.cluster_shape(bb, n_sms)
+        turns = [(f"{rule} (rule)", ("cluster", *rule))] + \
+            [(str(sh), ("cluster", *sh)) for sh in lk.CLUSTER_SHAPES if sh != rule] + \
+            [("generic", ("generic", 1, 1)), (f"{rule} (rule) again", ("cluster", *rule))]
+        ms = {name: cs.cuda_ms_median(lambda: lk._backward_launch(*bargs, plan=plan)) for name, plan in turns}
+        lib_fb, lib_b = cs.cuda_ms_median(lib_fwd_bwd), cs.cuda_ms_median(lib_bwd)
+        by_kernel = cs.device_ms_per_launch(lambda: lk._backward_launch(*bargs, plan=("cluster", *rule)), 10)
+        walk = sum(v for k, v in by_kernel.items() if "bwd_cluster" in k)
+        if mhz is None:
+            mhz = cs.sm_clock_mhz(lambda: lk._backward_launch(*bargs, plan=("cluster", *rule)), 300)
+        best = min(ms[turns[0][0]], ms[turns[-1][0]])
+        print(f"[K5 H 160 B={bb} T={t}, medians of 5 x 20, ms] " + "; ".join(f"{k}: {v:.4f}" for k, v in ms.items())
+              + f"; torch.nn.LSTM forward + backward {lib_fb:.4f}, backward alone {lib_b:.4f}; K5 / library "
+              f"backward {best / lib_b:.3f}")
+        print(f"[K5 H 160 B={bb} T={t}, {rule} by kernel, ms a launch] " + "  ".join(
+            f"{k}={v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+            + f"; walk {walk / t * mhz * 1e3:.0f} cycles a step at {mhz:.0f} MHz, the multiply-adds' floor "
+            f"{cs.h160_fma_cycles(*rule)}")
 
 
 def time_cluster(rng, b: int, t: int) -> None:
@@ -151,6 +225,7 @@ def main() -> int:
     if cluster:
         cluster_report(rng, b, t)
         time_cluster(rng, b, t)
+        time_cluster_backward(rng, t, (2, 3, b))
 
     a = cs.lstm_inputs(rng, b, t, hid)
     fwd_args = tuple(a.values())
@@ -190,7 +265,7 @@ def main() -> int:
     again = timed(True)
     shape = f"B={b} T={t} H={hid}"
     for name, i in (("K3", 0), ("K4", 1), ("K5", 2)):
-        line = f"[{name} {shape}, {path if i < 2 else lk.backward_kernel(hid)} kernel] " \
+        line = f"[{name} {shape}, {path if i < 2 else lk.backward_kernel(hid, b)[0]} kernel] " \
                f"ms={first[i]:.4f} (again {again[i]:.4f})"
         if generic is not None:
             line += f"  generic kernels at the same width: {generic[i]:.4f}"
@@ -206,8 +281,8 @@ def main() -> int:
         n_ops, n_bytes = ops_bytes
         print(f"[{label} bound] operations {n_ops / cs.F32_OPS_S * 1e3:.4f} ms  bytes {n_bytes / cs.HBM_BYTES_S * 1e3:.4f} ms")
 
-    by_kernel = cs.device_ms_by_kernel(lambda: lk.lstm_backward(*bwd_args), 10)
-    walk_ms = sum(v for k, v in by_kernel.items() if "bwd_walk" in k)
+    by_kernel = cs.device_ms_per_launch(lambda: lk.lstm_backward(*bwd_args), 10)
+    walk_ms = sum(v for k, v in by_kernel.items() if "bwd_walk" in k or "bwd_cluster" in k)
     mhz = cs.sm_clock_mhz(lambda: lk.lstm_train_forward(*fwd_args))
     print("[K5 by kernel, ms a launch] " + "  ".join(
         f"{k}={v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))

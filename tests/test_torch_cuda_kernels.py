@@ -162,9 +162,9 @@ def _lstm_inputs(b, t, hid, in_dim=2, seed=0):
 
 
 # H 16 and 64 take the register-resident kernels, H 160 (the shipped chorus
-# model's width) the cluster forward and the generic backward, H 50 (not a
-# multiple of 4) the generic ones; T around the forward chunk of 64 and the
-# backward chunk of 32, and ragged
+# model's width) the cluster kernels, H 50 (not a multiple of 4) the generic
+# ones; T around the forward chunk of 64 and the backward chunk of 32, and
+# ragged
 LSTM_HIDDEN = [16, 64, 160, 50]
 LSTM_SHAPES = [(5, 300), (1, 1), (1, 63), (5, 64), (1, 65)]
 LSTM_FORWARD_KERNEL = {16: "registers", 64: "registers", 160: "cluster", 50: "generic"}
@@ -176,7 +176,7 @@ LSTM_FORWARD_KERNEL = {16: "registers", 64: "registers", 160: "cluster", 50: "ge
 def test_lstm_forward_kernels_match_plain(hid, b, t):
     """K3 and K4: y, hn, cn and K4's saved hs, cs and gate activations."""
     _need_cuda()
-    assert lstm_kernels.backward_kernel(hid) == ("registers" if hid in (16, 32, 64) else "generic")
+    assert lstm_kernels.backward_kernel(hid, b)[0] == LSTM_FORWARD_KERNEL[hid]
     assert lstm_kernels.forward_kernel(hid, b)[0] == LSTM_FORWARD_KERNEL[hid]
     a = _lstm_inputs(b, t, hid)
     lstm_kernels.reset_launch_counts()
@@ -223,7 +223,7 @@ def test_lstm_generic_kernels_serve_a_fast_width():
     lstm_kernels.ALLOW_FAST = False
     try:
         assert lstm_kernels.forward_kernel(64, 3) == ("generic", 1, 1)
-        assert lstm_kernels.backward_kernel(64) == "generic"
+        assert lstm_kernels.backward_kernel(64, 3) == ("generic", 1, 1)
         generic = lstm_kernels.lstm_train_forward(**a)
     finally:
         lstm_kernels.ALLOW_FAST = True
@@ -253,6 +253,88 @@ def test_lstm_cluster_forward_matches_plain(b, t, in_dim, shape):
         assert (got - want).abs().max().item() <= TOL
     for got, want in zip(out4, ref):
         assert (got - want).abs().max().item() <= TOL
+
+
+def _lstm_backward_args(b, t, hid, in_dim=2, seed=1):
+    """K5's arguments: the plain forward's saved tensors and random
+    cotangents."""
+    a = _lstm_inputs(b, t, hid, in_dim=in_dim, seed=seed)
+    _, _, _, hs, cs, gates = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dh_in = torch.randn(b, t, hid, device="cuda", generator=g)
+    dhn, dcn = (torch.randn(b, hid, device="cuda", generator=g) for _ in range(2))
+    return (a["seq"], hs, cs, gates, a["h0"], a["c0"], a["w_ih"], a["w_hh"], dh_in, dhn, dcn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [2, 3])
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 300])
+@pytest.mark.parametrize("b", [1, 2, 3, 31, 32])
+def test_lstm_cluster_backward_matches_plain(b, t, in_dim):
+    """K5 at H 160 on the cluster walk, each cluster shape reached through
+    the batch that takes it (8 CTAs a row at B 1-3, 4 CTAs for two rows at
+    B 31 and 32, one row past the batch at B 31), T around both shapes'
+    chunks (16 and 32 steps): the walk's gate cotangents, dh0, dc0 and the
+    weight gradients and dseq that follow, each within 5e-4 of its largest
+    magnitude, and two launches the same bits."""
+    _need_cuda()
+    args = _lstm_backward_args(b, t, 160, in_dim=in_dim, seed=b + t)
+    plan = lstm_kernels.backward_kernel(160, b)
+    assert plan == (("cluster", 8, 1) if b <= 3 else ("cluster", 4, 2))
+    lstm_kernels.reset_launch_counts()
+    got = lstm_kernels._backward_launch(*args)
+    again = lstm_kernels._backward_launch(*args)
+    assert lstm_kernels.LAUNCHES["lstm_backward"] == 2
+    want = lstm_kernels.lstm_backward_plain(*args, with_dgates=True)
+    for x, y, z in zip(got, want, again):
+        assert x.shape == y.shape
+        assert (x - y).abs().max().item() <= GRAD_REL * y.abs().max().item()
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_lstm_generic_backward_serves_the_cluster_width():
+    """With `ALLOW_FAST` off, K5 at H 160 runs the generic walk and agrees
+    with the cluster walk within the kernels' gradient tolerance."""
+    _need_cuda()
+    args = _lstm_backward_args(3, 200, 160, seed=6)
+    cluster = lstm_kernels._backward_launch(*args)
+    lstm_kernels.ALLOW_FAST = False
+    try:
+        assert lstm_kernels.backward_kernel(160, 3) == ("generic", 1, 1)
+        generic = lstm_kernels._backward_launch(*args)
+    finally:
+        lstm_kernels.ALLOW_FAST = True
+    for x, y in zip(cluster, generic):
+        assert (x - y).abs().max().item() <= GRAD_REL * y.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_lstm_cluster_backward_refused_raises():
+    """Every cluster shape of the walk fits the card; a plan the kernels do
+    not have (a cluster of 6 CTAs, a cluster at H 64, the register-resident
+    walk at H 160) is refused by the library's entry and raises; nothing
+    falls back to another kernel."""
+    _need_cuda()
+    for n, rows in lstm_kernels.CLUSTER_SHAPES:
+        assert lstm_kernels.backward_cluster_occupancy(n, rows) >= 1
+    lib = lstm_kernels._load()
+    for hid, plan in ((160, ("cluster", 6, 1)), (64, ("cluster", 8, 1)), (160, ("registers", 1, 1))):
+        args = _lstm_backward_args(2, 10, hid, seed=7)
+        _, n, rows = plan
+        na = hid + 2 + 1
+        f32 = dict(device="cuda")
+        scratch = [torch.empty(20, 4 * hid, **f32), None, torch.empty(1, na, 4 * hid, **f32),
+                   torch.empty(na, 4 * hid, **f32), torch.empty(2, 2, 10, **f32), torch.empty(2, hid, **f32),
+                   torch.empty(2, hid, **f32)]
+        rc = lib.lstm_backward(
+            *(t.data_ptr() for t in args), *(None if t is None else t.data_ptr() for t in scratch),
+            2, 10, hid, 2, 1, 20, int(plan[0] == "registers"), n if plan[0] == "cluster" else 0, rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        assert rc != 0
+        with pytest.raises(RuntimeError, match="cudaError"):
+            lstm_kernels._backward_launch(*args, plan=plan)
 
 
 @pytest.mark.cuda
