@@ -55,7 +55,22 @@ points at full width:
   equal those with copies on the compute stream bit for bit.  Each phase
   prints its step times and `audio_sec_per_sec`, and the idle share of one
   iteration of the step loop, profiled by the Trainer's own window
-  (`cli.fit(..., profile_steps=...)`), beside the bench at the same batch.
+  (`cli.fit(..., profile_steps=...)`), beside the bench at the same batch;
+* `eval`, the evaluation path as a user runs it from the repo root, in a
+  temporary working directory: the riff corpus, the sim corpora of
+  `scripts/make_sim_effect_data_torch.py` (K1, K2) and the ground-truth
+  control corpora of `scripts/make_sim_chorus_gt_control_torch.py` (K1)
+  written on the card, one written wet held against K1's plain version,
+  then `scripts/run_eval_grid_torch.py` on `eval_lfo.yml` (K2, the r7
+  extractor, 1000 examples at batch 125), `eval_lfo_flanger.yml` (K1),
+  `eval_em_unseen_effect.yml` (the imported LSTM-64s' forward, K3),
+  `--unseen-audio` (the five synthetic domains: K1, K2) and `--em-sim`
+  (every sim effect's LSTM-64 and rand-baseline tables, the
+  ground-truth controls, the LSTM-160 capacity bracket on the cluster
+  forward and the seed-2 chorus3 pair: K3 at H 64 and 160); every archive
+  written with no FAILED or SKIPPED block, the launches those of the
+  batches validated, each config's wall time and examples a second
+  printed, and `eval_lfo.yml` at one val batch held card against CPU.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -1859,6 +1874,237 @@ def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows:
     return dict(step_ms=step_ms, step_ms_readings=readings, profile={k: v for k, v in prof.items() if k not in ("top_device_ms", "phase")})
 
 
+# ---------------------------------------------------------------------------
+# the evaluation path: the sim corpora, the eval grid, the archived tables
+# ---------------------------------------------------------------------------
+
+# run as a user runs `scripts/run_eval_grid_torch.py out/eval <config> ...`
+EVAL_CONFIGS = ("eval_lfo.yml", "eval_lfo_flanger.yml", "eval_em_unseen_effect.yml")
+EVAL_CPU_CONFIG = "configs/eval_lfo.yml"  # held card vs CPU at one val batch
+
+
+def _val_batches(cfg: dict) -> int:
+    args = cfg["data"]["init_args"]
+    n, bs = args["val_num_examples_per_epoch"], args["batch_size"]
+    if n % bs:
+        fail(f"eval: {n} val examples do not fill batches of {bs}")
+    return n // bs
+
+
+def check_sim_render(fxk, sim) -> float:
+    """The written val wet of sim_chorus against the same dry rendered by
+    K1's plain version on the card: the generator's numpy stream replayed
+    (its train draws, then the val dry windows and LFOs), the delays formed
+    as `ops/fx.py::apply_flanger_chorus` forms them.  PCM16 quantizes the
+    file by up to one step (3.1e-5); returns the max |diff|."""
+    from mod_extraction_tpu_torch.data.wav import wav_read
+    from mod_extraction_tpu_torch.ops.fx import ms_to_samples
+
+    effect = "sim_chorus"
+    mdw, width, mix, _ = sim.CHORUS_REGIMES[effect]
+    rng = np.random.default_rng(sim.EFFECT_SEEDS[effect])
+    sim._load_dry(rng, "data/idmt_4/train", 48)
+    sim._quasi_tri(rng, 48, 1.6, 1.9)
+    dry = sim._load_dry(rng, "data/idmt_4/val", 8)
+    mod = torch.from_numpy(sim._quasi_tri(rng, 8, 1.6, 1.9)).cuda()[:, None, :]
+    mmd, mld = ms_to_samples(30.0, SR), ms_to_samples(10.0, SR)
+
+    def col(v):
+        return torch.full((8, 1, 1), v, dtype=torch.float32, device="cuda")
+
+    delay = mld * col(width) * mod + col(mdw) * mmd
+    plain = fxk.flanger_plain(torch.from_numpy(dry).cuda(), delay, col(0.3), col(1.0), col(mix), mmd + mld)
+    written = np.stack([wav_read(f"data/{effect}/val/wet/pair_{i:02d}.wav")[0] for i in range(8)])
+    err = float(np.abs(written - plain.cpu().numpy()).max())
+    print(f"[eval] {effect} val wet as written (PCM16) against K1's plain version on the card: "
+          f"max |diff| {err:.3e} (limit {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        fail(f"eval: the written {effect} wet is {err} from the plain render")
+    return err
+
+
+def run_eval(fxk, lk, rows: list) -> dict:
+    """The evaluation path as a user runs it from the repo root, in a
+    temporary working directory holding `configs` and `models` (linked) and
+    a `data/` filled here: the riff corpus (`data/synthetic.py`), the sim
+    corpora of `scripts/make_sim_effect_data_torch.py` (every effect, K1 and
+    K2) and `scripts/make_sim_chorus_gt_control_torch.py` (three regimes,
+    K1) and the five unseen-audio domains, then
+    `scripts/run_eval_grid_torch.py` on `eval_lfo.yml` (K2),
+    `eval_lfo_flanger.yml` (K1) and `eval_em_unseen_effect.yml` (the
+    imported checkpoints' forward, K3), `--unseen-audio` (3 effects x 5
+    domains x {fixed, varying}: K1, K2) and `--em-sim` (every effect's
+    LSTM-64 and rand tables, the ground-truth controls, the H 160 capacity
+    bracket on the cluster forward and the seed-2 chorus3 pair: K3).  Each
+    config's wall time and examples a second are printed; every archive
+    must be written with no FAILED block (and no SKIPPED one: every corpus
+    and checkpoint is there), the launches must be those of the work done,
+    and one eval config holds its card metrics against the CPU's in float32
+    (the shipped bf16 convs' difference is printed beside it)."""
+    import contextlib
+    import os
+    import tempfile
+
+    from mod_extraction_tpu_torch import cli
+    from mod_extraction_tpu_torch.data.synthetic import write_synthetic_corpus
+
+    grid = load_script("run_eval_grid_torch")
+    sim = load_script("make_sim_effect_data_torch")
+    gt = load_script("make_sim_chorus_gt_control_torch")
+    t_phase = time.perf_counter()
+    counters = (fxk, lk)
+    cwd = os.getcwd()
+    launches = {"flanger": 0, "phaser": 0, "lstm_forward": 0, "lstm_forward_h160": 0}
+    timings = {}
+
+    def reset():
+        for c in counters:
+            c.reset_launch_counts()
+
+    def read():
+        torch.cuda.synchronize()
+        got = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        stack.callback(os.chdir, cwd)
+        os.chdir(tmp)
+        for name in ("configs", "models"):
+            os.symlink(ROOT / name, name)
+        t0 = time.perf_counter()
+        write_synthetic_corpus("data/idmt_4")
+        for domain in grid.UNSEEN_DOMAINS:  # `make_synthetic_corpus.py data/unseen_<d> 0 10 12 --style <d>`
+            write_synthetic_corpus(f"data/unseen_{domain}", n_train=0, n_val=10, dur_s=12.0, style=domain)
+        print(f"[eval] data/idmt_4 and data/unseen_{{{','.join(grid.UNSEEN_DOMAINS)}}} written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # -- the sim corpora, on the card
+        t0 = time.perf_counter()
+        reset()
+        sim.main([])
+        got = read()
+        n_fl = 2 * sum(1 for e in sim.ALL_EFFECTS if e != "sim_phaser")
+        if got != {"flanger": n_fl, "phaser": 2}:
+            fail(f"eval: make_sim_effect_data_torch launched {got}, expected K1 {n_fl} and K2 2")
+        print(f"[eval] make_sim_effect_data_torch (all {len(sim.ALL_EFFECTS)} effects, 48 + 8 pairs of 2.5 s "
+              f"each) in {time.perf_counter() - t0:.1f} s; launches {got}")
+        t0 = time.perf_counter()
+        reset()
+        for regime in gt.REGIMES:
+            gt.main(["--regime", regime])
+        got = read()
+        n_gt = len(gt.REGIMES) * (-(-256 // 32) + -(-96 // 32))
+        if got != {"flanger": n_gt}:
+            fail(f"eval: make_sim_chorus_gt_control_torch launched {got}, expected K1 {n_gt}")
+        print(f"[eval] make_sim_chorus_gt_control_torch ({len(gt.REGIMES)} regimes, 256 + 96 triplets "
+              f"each) in {time.perf_counter() - t0:.1f} s; launches {got}")
+        sim_err = check_sim_render(fxk, sim)
+
+        # -- the grid, through the script's entry point
+        examples = [0]
+        metrics = []
+
+        def counted_validate_many(variants):
+            """`cli.validate_many` on the card, its K3 launches at H 160 set
+            apart and its val batches counted against the launches."""
+            before = dict(lk.LAUNCHES), dict(fxk.LAUNCHES)
+            out = cli.validate_many(variants, device="cuda")
+            torch.cuda.synchronize()
+            cfg = variants[0][1]
+            args = cfg["model"]["init_args"]
+            em = args.get("effect_model")
+            n = sum(_val_batches(c) for _, c in variants)
+            examples[0] += sum(c["data"]["init_args"]["val_num_examples_per_epoch"] for _, c in variants)
+            if em is not None:
+                k3 = lk.LAUNCHES["lstm_forward"] - before[0]["lstm_forward"]
+                if k3 != n:
+                    fail(f"eval: {[lb for lb, _ in variants]} launched K3 {k3} times over {n} val batches")
+                if em["init_args"]["n_hidden"] == 160:
+                    launches["lstm_forward_h160"] += k3
+            else:
+                effects = cfg["data"]["class_path"].rsplit(".", 1)[-1]
+                key = "phaser" if "Phaser" in effects else "flanger"
+                k = fxk.LAUNCHES[key] - before[1][key]
+                if k != n:
+                    fail(f"eval: {[lb for lb, _ in variants]} launched {key} {k} times over {n} val batches")
+            for label, m in out:
+                if not m or not all(math.isfinite(v) for v in m.values()):
+                    fail(f"eval: {label!r} metrics {m}")
+                metrics.append((label, m))
+            return out
+
+        reset()
+        runs = [(name, ["out/eval", name]) for name in EVAL_CONFIGS] + \
+            [(flag, [flag, "out/eval"]) for flag in ("--unseen-audio", "--em-sim")]
+        for label, argv in runs:
+            t0 = time.perf_counter()
+            examples[0] = 0
+            (path,) = grid.main(argv, validate_many=counted_validate_many)
+            dt = time.perf_counter() - t0
+            text = Path(path).read_text()
+            if "FAILED" in text or "SKIPPED" in text:
+                fail(f"eval: {path} holds a FAILED or SKIPPED block:\n{text[:4000]}")
+            timings[label] = dict(s=dt, examples=examples[0], examples_per_s=examples[0] / dt if examples[0] else None)
+            print(f"[eval] run_eval_grid_torch {label} -> {path}: {dt:.1f} s, {examples[0]} val examples, "
+                  f"{examples[0] / dt:.1f} examples/s" if examples[0] else
+                  f"[eval] run_eval_grid_torch {label} -> {path}: {dt:.1f} s (the EGFx/Melda stub)")
+        got = read()
+        stub = Path("out/eval/eval_em_unseen_effect.txt").read_text()
+        if stub.count("forward OK") != 7:
+            fail(f"eval: the unseen-effect stub served {stub.count('forward OK')} of 7 forwards")
+        em_sim = Path("out/eval/eval_em_sim.txt").read_text()
+        n_tables = em_sim.count("┏")
+        want_tables = 2 * (len(grid.EM_SIM_EFFECTS) + len(grid.GT_CONTROL_REGIMES) + len(grid.H160_PAIRS) + 1)
+        if n_tables != want_tables:
+            fail(f"eval: eval_em_sim.txt holds {n_tables} tables, expected {want_tables}")
+        print(f"[eval] grid launches {got} (K3 at H 160: {launches['lstm_forward_h160']}); "
+              f"eval_em_sim.txt {n_tables} tables")
+
+        # -- one eval config on the card against the CPU, one val batch: in
+        # float32 (the model config's setting for parity runs), held; with
+        # the shipped bf16 convs, printed (bf16 operands rounded by other
+        # kernels on each side)
+        cfg = cli.load_yaml_with_includes(EVAL_CPU_CONFIG)
+        custom = cfg["custom"]
+        cfg["data"]["init_args"].update(batch_size=custom["cpu_batch_size"],
+                                        val_num_examples_per_epoch=custom["cpu_val_num_examples_per_epoch"])
+        model_args = cfg["model"]["init_args"]["model"]["init_args"]
+        for dtype in ("float32", model_args["compute_dtype"]):
+            t0 = time.perf_counter()
+            model_args["compute_dtype"] = dtype
+            on_card = cli.validate_many([("card", cfg)], device="cuda")[0][1]
+            on_cpu = cli.validate_many([("cpu", cfg)], device="cpu")[0][1]
+            rel = max(abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12) for k in on_cpu)
+            print(f"[eval] {EVAL_CPU_CONFIG} ({dtype} convs) at one val batch of {custom['cpu_batch_size']}: "
+                  f"card {on_card}, cpu {on_cpu}, worst rel diff {rel:.3e}"
+                  + (f" (limit {VAL_RTOL})" if dtype == "float32" else "") + f", {time.perf_counter() - t0:.1f} s")
+            if set(on_card) != set(on_cpu):
+                fail(f"eval: {EVAL_CPU_CONFIG} metrics {sorted(on_card)} on the card, {sorted(on_cpu)} on the CPU")
+            if dtype == "float32":
+                worst = rel
+                if not worst <= VAL_RTOL:
+                    fail(f"eval: {EVAL_CPU_CONFIG} on the card {on_card} against the CPU {on_cpu}")
+
+    h160 = launches.pop("lstm_forward_h160")
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"])
+        if row["name"] == "lstm_effect_model_h160":
+            row["launches"] += h160
+            row["eval_launches"] = h160
+        elif row["name"] == "lstm_effect_model":
+            row["launches"] += launches["lstm_forward"] - h160
+            row["eval_launches"] = launches["lstm_forward"] - h160
+        elif key in launches:
+            row["launches"] += launches[key]
+            row["eval_launches"] = launches[key]
+    total = time.perf_counter() - t_phase
+    print(f"[eval total] {total:.1f} s")
+    return dict(s=total, configs=timings, launches=dict(launches, lstm_forward_h160=h160),
+                sim_wet_err=sim_err, card_vs_cpu_rel=worst)
+
+
 # the kernels line's rows -> the launch counters of their wrappers
 ROW_COUNTER = {
     "flanger_delay_line": "flanger", "phaser_allpass": "phaser", "conv_wgrad_tapcat": "conv_wgrad",
@@ -1933,6 +2179,7 @@ def main() -> int:
             bench_lines[1], rows),
     }
     print("[fits] " + json.dumps(fits))
+    print("[eval] " + json.dumps(run_eval(fxk, lk, rows)))
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

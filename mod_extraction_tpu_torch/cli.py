@@ -16,7 +16,11 @@ Kept from the JAX package:
 * run naming `{model_name}__{dataset_name}`, `seed_everything`,
 * `build_optimizer` / `build_lr` with the JAX package's hyper-parameters:
   AdamW's weight decay is 0.01 when the config gives none, and the cosine
-  and linear schedules take optax's values at every optimizer update.
+  and linear schedules take optax's values at every optimizer update,
+* `validate`, which prints the archived `eval/*.txt` table
+  (`evaluation/tables.py`) and writes `custom.save_latents`, and
+  `validate_many`, which sweeps data/checkpoint variants over one task
+  (what `scripts/run_eval_grid_torch.py` calls).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU.  What the port does not have yet raises `NotImplementedError`
@@ -37,13 +41,15 @@ import torch
 import yaml
 
 from mod_extraction_tpu_torch.data.modules import DATA_MODULE_REGISTRY
+from mod_extraction_tpu_torch.evaluation.tables import format_validate_table
 from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, flax_to_state_dict
 from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
-from mod_extraction_tpu_torch.paths import CONFIGS_DIR, ROOT_DIR
+from mod_extraction_tpu_torch.paths import CONFIGS_DIR, ROOT_DIR, ensure_dir
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask, adamw
-from mod_extraction_tpu_torch.train.loop import Trainer
+from mod_extraction_tpu_torch.train.loop import Trainer, _tree_map, host_batch_to_torch
+from mod_extraction_tpu_torch.train.render import render_batch
 from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 from mod_extraction_tpu_torch.utils.device import resolve_device
 
@@ -276,9 +282,11 @@ def _load_lfo_weights(model, weights_path: str) -> Dict[str, torch.Tensor]:
     an LSTMEffectModel)."""
     if weights_path.endswith(".pt"):
         raise NotImplementedError(
-            f"{weights_path}: reference .pt checkpoints are not read by the port "
-            "(models/torch_port.py is not queued, ROADMAP.md queue 1); convert them "
-            "to .npz with the JAX package first"
+            f"{weights_path}: a .pt file is not read as bare weights. A checkpoint of the "
+            "port (`<out>/<run>_ckpts/best.pt` or `last.pt`) converts to the .npz this key "
+            "takes with `python scripts/extract_torch_weights.py <ckpt.pt> <out.npz> "
+            "[model|effect_model|lfo_model]`; the reference's .pt checkpoints are not read "
+            "by the port (models/torch_port.py is not queued, ROADMAP.md queue 1)"
         )
     if not weights_path.endswith(".npz"):
         raise ValueError(f"unsupported weights format: {weights_path}")
@@ -480,6 +488,22 @@ def _load_eval_state(run: RunConfig, trainer: Trainer, ckpt_path: Optional[str])
         log.warning("checkpoint %s not found; validating with random init", ckpt_path)
 
 
+def _save_latents(run: RunConfig, trainer: Trainer, out_dir: str) -> None:
+    """`custom.save_latents`: the Spectral2DCNN latents of one val batch to
+    `<out_dir>/latents/<dataset_name>.npy` (for
+    `scripts/latent_space_visualizations.py`, a PCA per effect class)."""
+    run.data_module.setup("validate")
+    batch = next(run.data_module.val_loader().epoch(0))
+    batch = _tree_map(lambda t: t.to(run.device), host_batch_to_torch(batch))
+    task = run.task
+    task.model.eval()
+    with torch.no_grad():
+        dry, wet, _, fx = render_batch(batch, task.render_cfg, trainer.corpus)
+        _, latent = task._extract(dry, wet, fx, None)
+    latents_dir = ensure_dir(os.path.join(out_dir, "latents"))
+    np.save(os.path.join(latents_dir, f"{run.dataset_name}.npy"), latent.float().cpu().numpy())
+
+
 def validate(
     config: str | Dict[str, Any],
     out_dir: str = "out",
@@ -487,13 +511,65 @@ def validate(
     ckpt_path: Optional[str] = None,
 ) -> Dict[str, float]:
     """Validation run over the config's val set, with the weights of
-    `ckpt_path` (default: the config's `ckpt_path`); prints the metrics and
-    returns them."""
+    `ckpt_path` (default: the config's `ckpt_path`); prints the eval table
+    (the archived `eval/*.txt` format) and returns the metrics."""
     run = RunConfig(_load_config(config), device)
     trainer = Trainer(run.task, run.data_module, out_dir=out_dir, run_name=run.run_name + "_eval")
     _load_eval_state(run, trainer, ckpt_path or run.ckpt_path)
     metrics = trainer.validate()
-    width = max(len(k) for k in metrics) + 4 if metrics else 0
-    for k, v in sorted(metrics.items()):
-        print(f"{'val/' + k:<{width}} {v:.6f}")
+    custom = run.raw.get("custom") or {}
+    if custom.get("save_latents", False) and isinstance(run.task, LFOExtractionTask) and run.task.has_params:
+        _save_latents(run, trainer, out_dir)
+    print(format_validate_table({f"val/{k}": v for k, v in metrics.items()}))
     return metrics
+
+
+def validate_many(variants: list, out_dir: str = "out", device: str | torch.device = "cuda") -> list:
+    """Validate several (label, cfg) variants of one experiment config with
+    one task; returns [(label, metrics), ...].
+
+    The task is built once from the first cfg.  Each variant may swap the
+    data block (the per-shape LFO sweeps) and/or `ckpt_path` (the em-sim
+    suite's per-effect checkpoints); a variant that changes the model block
+    or the RenderConfig raises `AssertionError`.  Weights load only when
+    `ckpt_path` changes, each time from the task's initial weights (so a
+    variant without one validates the seeded init, as in the JAX package);
+    the RandomLFO baseline loads nothing.  The task's generator restarts
+    from the seed for each variant, so every variant's metrics are those of
+    `validate` on its config alone."""
+    assert variants
+    results = []
+    run: Optional[RunConfig] = None
+    first_model_cfg = None
+    initial = None
+    last_ckpt: Any = object()  # sentinel != any real path/None
+    for label, cfg in variants:
+        custom = cfg.get("custom") or {}
+        if run is None:
+            run = RunConfig(cfg, device)
+            dm = run.data_module
+            first_model_cfg = cfg.get("model")
+            if run.task.has_params:
+                initial = {k: v.detach().clone() for k, v in run.task.trained_model.state_dict().items()}
+        else:
+            # only data/ckpt may vary: the task (model block) is reused, so
+            # differing model configs would give tables for the wrong model
+            assert cfg.get("model") == first_model_cfg, (
+                f"variant {label!r} changes the model block; it needs its "
+                "own validate()/validate_many() run"
+            )
+            dm, _ = build_data_module(dict(cfg["data"]), custom, run.seed, run.device)
+            assert dm.render_cfg == run.task.render_cfg, (
+                f"variant {label!r} changes the render config; it needs its "
+                "own validate() run"
+            )
+        trainer = Trainer(run.task, dm, out_dir=out_dir, run_name=run.run_name + "_eval")
+        ckpt = cfg.get("ckpt_path")
+        if ckpt != last_ckpt:
+            if initial is not None:
+                run.task.trained_model.load_state_dict(initial)
+            _load_eval_state(run, trainer, ckpt)
+            last_ckpt = ckpt
+        run.task.generator.manual_seed(run.seed)
+        results.append((label, trainer.validate()))
+    return results

@@ -1,8 +1,9 @@
 """Synthetic data (no recorded audio needed) for tests, the chip smoke run
 and the bench: the numpy copy of `mod_extraction_tpu/data/synthetic.py::
 make_synthetic_batch`, the interwoven (flanger + chorus + phaser) batch the stage-1 path trains
-on, and `write_synthetic_corpus`, the port's copy of the riff corpus that
-`scripts/make_synthetic_corpus.py` writes (same files, byte for byte)."""
+on, and `write_synthetic_corpus`, the port's copy of the corpora that
+`scripts/make_synthetic_corpus.py` writes (the riffs and the unseen-audio
+styles; same files, byte for byte)."""
 
 from __future__ import annotations
 
@@ -183,14 +184,239 @@ def render_riff(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarra
     return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
 
 
+def render_pads(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """Sustained additive-synthesis chords (vocal/pad-like): slow attacks,
+    steady harmonics, slight detune shimmer — spectral statistics far from
+    the plucked KS riffs, for the UNSEEN-AUDIO generalization eval
+    (reference uses MedleyDB/VocalSet there)."""
+    out = np.zeros(n_samples)
+    bar = 4 * 60.0 / bpm
+    t_axis = np.arange(n_samples) / CORPUS_SR
+    t = 0.0
+    while t < n_samples / CORPUS_SR:
+        dur = bar * rng.choice([1.0, 1.0, 2.0])
+        root = 110.0 * SEMITONE ** rng.integers(0, 24)
+        intervals = rng.choice([0, 3, 4, 7, 10, 12], rng.integers(3, 6),
+                               replace=False)
+        seg = np.zeros(n_samples)
+        for iv in intervals:
+            f0 = root * SEMITONE ** iv
+            for h in range(1, 9):
+                if f0 * h > 0.45 * CORPUS_SR:
+                    break
+                detune = 1.0 + rng.normal(0.0, 3e-4)
+                amp = rng.uniform(0.5, 1.0) / h**1.5
+                ph = rng.uniform(0, 2 * np.pi)
+                seg += amp * np.sin(2 * np.pi * f0 * h * detune * t_axis + ph)
+        # slow attack/release envelope gated to [t, t+dur]
+        env = np.clip((t_axis - t) / 0.4, 0, 1) * np.clip((t + dur - t_axis) / 0.6, 0, 1)
+        out += seg * np.clip(env, 0, 1) * rng.uniform(0.2, 0.5)
+        t += dur
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+def render_vocal(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """Solo voice-like line: harmonic source with formant-shaped partials,
+    5-6 Hz vibrato, portamento between notes and breathy phrase gaps —
+    the VocalSet stand-in for the unseen-audio eval."""
+    out = np.zeros(n_samples)
+    beat = 60.0 / bpm
+    # a singer's comfortable register + 2-3 formant resonances
+    root = 196.0 * SEMITONE ** rng.integers(0, 10)
+    scale = [0, 2, 4, 5, 7, 9, 11, 12]
+    formants = rng.uniform([450, 1100, 2400], [750, 1600, 3000])
+    fwidths = rng.uniform([80, 120, 250], [140, 220, 400])
+    t = rng.uniform(0.0, 0.3) * beat
+    prev_f0 = root
+    while t * CORPUS_SR < n_samples:
+        dur_beats = rng.choice([1.0, 1.0, 2.0, 2.0, 4.0])
+        if rng.uniform() < 0.15:  # breath pause
+            t += dur_beats * beat
+            prev_f0 = root
+            continue
+        f0_target = root * SEMITONE ** rng.choice(scale)
+        dur = dur_beats * beat
+        n = min(int(dur * CORPUS_SR), n_samples - int(t * CORPUS_SR))
+        if n <= 0:
+            break
+        tt = np.arange(n) / CORPUS_SR
+        # portamento from the previous pitch + vibrato ramping in
+        glide = f0_target + (prev_f0 - f0_target) * np.exp(-tt / 0.06)
+        vib_rate = rng.uniform(4.5, 6.0)
+        vib_depth = 2.0 ** (rng.uniform(15, 40) / 1200.0) - 1.0  # cents
+        vib_env = np.clip((tt - 0.15) / 0.25, 0, 1)
+        f0_t = glide * (1.0 + vib_depth * vib_env * np.sin(2 * np.pi * vib_rate * tt))
+        phase = 2 * np.pi * np.cumsum(f0_t) / CORPUS_SR
+        seg = np.zeros(n)
+        for h in range(1, 24):
+            fh = f0_target * h
+            if fh > 0.45 * CORPUS_SR:
+                break
+            # formant envelope: sum of gaussian resonances + tilt
+            fenv = sum(
+                a * np.exp(-0.5 * ((fh - fc) / fw) ** 2)
+                for a, fc, fw in zip((1.0, 0.6, 0.35), formants, fwidths)
+            ) + 0.08 / h
+            seg += fenv * np.sin(h * phase)
+        # breath noise, weakly high-passed by differencing
+        breath = np.diff(rng.uniform(-1, 1, n + 1)) * 0.01
+        env = np.clip(tt / 0.08, 0, 1) * np.clip((dur - tt) / 0.12, 0, 1)
+        i = int(t * CORPUS_SR)
+        out[i : i + n] += (seg * 0.25 + breath) * np.clip(env, 0, 1)
+        prev_f0 = f0_target
+        t += dur_beats * beat
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+def render_drums(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """Kick/snare/hat groove (idmt_drums stand-in): pitch-dropping sine
+    kicks, noise-burst snares, short HF hats on a 16th grid with ring-out
+    so 2 s chunks stay above the silence threshold."""
+    out = np.zeros(n_samples + CORPUS_SR)
+    step = 60.0 / bpm / 4.0  # 16th notes
+
+    def kick(n):
+        tt = np.arange(n) / CORPUS_SR
+        f = 50.0 + 90.0 * np.exp(-tt / 0.03)
+        return np.sin(2 * np.pi * np.cumsum(f) / CORPUS_SR) * np.exp(-tt / 0.18)
+
+    def snare(n):
+        tt = np.arange(n) / CORPUS_SR
+        noise = rng.uniform(-1, 1, n)
+        # crude bandpass: difference (HP) then 2-tap average (LP)
+        noise = np.diff(noise, prepend=0.0)
+        noise = 0.5 * (noise + np.concatenate(([0.0], noise[:-1])))
+        tone = 0.4 * np.sin(2 * np.pi * 190.0 * tt)
+        return (noise + tone) * np.exp(-tt / 0.09)
+
+    def hat(n):
+        tt = np.arange(n) / CORPUS_SR
+        noise = np.diff(rng.uniform(-1, 1, n), prepend=0.0)  # high-passed
+        return noise * np.exp(-tt / 0.025)
+
+    n_steps = int(n_samples / CORPUS_SR / step) + 1
+    for s in range(n_steps):
+        i = int(s * step * CORPUS_SR)
+        beat_in_bar = s % 16
+        if beat_in_bar in (0, 8) or rng.uniform() < 0.08:
+            n = int(0.5 * CORPUS_SR)
+            out[i : i + n] += 0.9 * kick(n)[: len(out) - i]
+        if beat_in_bar in (4, 12) or rng.uniform() < 0.06:
+            n = int(0.35 * CORPUS_SR)
+            out[i : i + n] += 0.6 * snare(n)[: len(out) - i]
+        if beat_in_bar % 2 == 0 or rng.uniform() < 0.3:
+            n = int(0.12 * CORPUS_SR)
+            out[i : i + n] += rng.uniform(0.15, 0.35) * hat(n)[: len(out) - i]
+    out = out[:n_samples]
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+def render_bass(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """Low monophonic KS bassline (mdb_bass stand-in): one octave below
+    the guitar register, longer sustains, heavier damping filter."""
+    out = np.zeros(n_samples + CORPUS_SR)
+    beat = 60.0 / bpm
+    root = (_E2 / 2.0) * SEMITONE ** rng.integers(0, 7)
+    scale = [0, 3, 5, 7, 10, 12]
+    t = rng.uniform(0.0, 0.25) * beat
+    while t * CORPUS_SR < n_samples:
+        dur_beats = rng.choice([1.0, 1.0, 2.0, 2.0, 4.0])
+        if rng.uniform() < 0.08:
+            t += dur_beats * beat
+            continue
+        freq = root * SEMITONE ** rng.choice(scale)
+        dur = dur_beats * beat * rng.uniform(1.2, 1.8)
+        n = int(dur * CORPUS_SR)
+        note = karplus_strong(rng, freq, n, rng.uniform(0.997, 0.9995))
+        # mellow the pluck: 4-tap moving average (gentle lowpass)
+        k = np.ones(4) / 4.0
+        note = np.convolve(note, k, mode="same")
+        note *= rng.uniform(0.5, 0.9) * np.exp(-np.arange(n) / (dur * CORPUS_SR))
+        i = int(t * CORPUS_SR)
+        out[i : i + n] += note[: max(0, len(out) - i)]
+        t += dur_beats * beat
+    out = np.tanh(1.2 * out[:n_samples])
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+def render_keys(rng: np.random.Generator, n_samples: int, bpm: int) -> np.ndarray:
+    """FM electric-piano comping (keys stand-in, 5th unseen-audio
+    domain): percussive bell-like attacks from a fast-decaying FM
+    modulation index plus a 'tine' partial, chords on a half/whole-beat
+    grid — transient-rich but pitched, unlike pads (slow attack), drums
+    (unpitched), or bass/riffs (plucked KS)."""
+    out = np.zeros(n_samples + CORPUS_SR)
+    beat = 60.0 / bpm
+    root = 220.0 * SEMITONE ** rng.integers(0, 12)
+    scale = [0, 2, 4, 5, 7, 9, 11]
+    t = rng.uniform(0.0, 0.25) * beat
+    while t * CORPUS_SR < n_samples:
+        dur_beats = rng.choice([0.5, 1.0, 1.0, 2.0])
+        if rng.uniform() < 0.12:  # comping rest
+            t += dur_beats * beat
+            continue
+        degree = rng.integers(0, 7)
+        chord = [scale[degree], scale[(degree + 2) % 7] + (12 if degree + 2 >= 7 else 0),
+                 scale[(degree + 4) % 7] + (12 if degree + 4 >= 7 else 0)]
+        if rng.uniform() < 0.4:
+            chord.append(chord[0] + 12)
+        dur = dur_beats * beat * rng.uniform(1.1, 1.6)
+        n = min(int(dur * CORPUS_SR), len(out) - int(t * CORPUS_SR))
+        if n <= 0:
+            break
+        tt = np.arange(n) / CORPUS_SR
+        seg = np.zeros(n)
+        for iv in chord:
+            f0 = root * SEMITONE ** iv
+            if f0 > 0.2 * CORPUS_SR:
+                continue
+            # 2-op FM: modulator at ~an octave+fifth, index decays fast
+            # (bright strike -> mellow sustain), detuned 'tine' partial
+            ratio = rng.choice([2.0, 3.0, 14.0]) * (1.0 + rng.normal(0, 1e-3))
+            index = rng.uniform(1.5, 3.5) * np.exp(-tt / 0.06)
+            ph = rng.uniform(0, 2 * np.pi)
+            carrier = np.sin(
+                2 * np.pi * f0 * tt + ph
+                + index * np.sin(2 * np.pi * f0 * ratio * tt)
+            )
+            tine = 0.25 * np.sin(2 * np.pi * f0 * 6.27 * tt) * np.exp(-tt / 0.05)
+            amp = rng.uniform(0.5, 0.9) * np.exp(-tt / (0.35 * dur))
+            seg += amp * (carrier + tine)
+        # key-click transient
+        click = np.diff(rng.uniform(-1, 1, n + 1)) * 0.02 * np.exp(-tt / 0.01)
+        i = int(t * CORPUS_SR)
+        out[i : i + n] += (seg * 0.3 + click) * np.clip(tt / 0.004, 0, 1)
+        t += dur_beats * beat
+    out = out[:n_samples]
+    peak = np.abs(out).max()
+    return (0.7 * out / max(peak, 1e-6)).astype(np.float32)
+
+
+STYLES = {
+    "riffs": render_riff,
+    "pads": render_pads,
+    "vocal": render_vocal,
+    "drums": render_drums,
+    "bass": render_bass,
+    "keys": render_keys,
+}
+
+
 def write_synthetic_corpus(
-    out_root: str, n_train: int = 32, n_val: int = 8, dur_s: float = 12.0
+    out_root: str, n_train: int = 32, n_val: int = 8, dur_s: float = 12.0, style: str = "riffs"
 ) -> list:
-    """Karplus-Strong guitar riffs as PCM16 wavs under `out_root/{train,val}`,
-    named `riffs_<seed>_<bpm>bpm.wav` (the idmt split convention), each file
+    """Synthetic audio as PCM16 wavs under `out_root/{train,val}`, named
+    `<style>_<seed>_<bpm>bpm.wav` (the idmt split convention), each file
     drawn from its own seed: the corpus `scripts/make_synthetic_corpus.py
-    [out_root] [n_train] [n_val] [dur_s]` writes, byte for byte.  Returns
-    the paths written."""
+    [out_root] [n_train] [n_val] [dur_s] [--style <style>]` writes, byte for
+    byte.  `style` is one of `STYLES`: the Karplus-Strong guitar riffs
+    (default), or the unseen-audio domains pads, vocal, drums, bass, keys.
+    Returns the paths written."""
+    render = STYLES[style]
     n_samples = int(dur_s * CORPUS_SR)
     paths = []
     for split, count, seed0 in (("train", n_train, 1000), ("val", n_val, 2000)):
@@ -201,7 +427,7 @@ def write_synthetic_corpus(
         for i in range(count):
             rng = np.random.default_rng(seed0 + i)
             bpm = int(rng.choice([80, 95, 100, 110, 120, 130, 140]))
-            path = os.path.join(d, f"riffs_{seed0 + i}_{bpm}bpm.wav")
-            wav_write(path, render_riff(rng, n_samples, bpm), CORPUS_SR)
+            path = os.path.join(d, f"{style}_{seed0 + i}_{bpm}bpm.wav")
+            wav_write(path, render(rng, n_samples, bpm), CORPUS_SR)
             paths.append(path)
     return paths

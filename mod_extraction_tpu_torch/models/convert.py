@@ -7,8 +7,10 @@ flax tree (`params` level optional).  Spectral2DCNN keys: `Conv_{i}/kernel`
 `Dense_0/bias`; HWIO kernels become OIHW, Dense (I, O) becomes Linear
 (O, I) (the inverse direction of `mod_extraction_tpu/models/torch_port.py`).
 LSTM keys: `w_ih` (in_dim, 4H), `w_hh` (H, 4H), `b_gates` (4H,),
-`fc/kernel` (H, out), `fc/bias` (out,), kept in that layout;
-`lstm_state_dict_to_flax` maps back.
+`fc/kernel` (H, out), `fc/bias` (out,), kept in that layout.
+`spectral_2dcnn_state_dict_to_flax` and `lstm_state_dict_to_flax` map back,
+exactly: the weights a port-trained model hands on (`scripts/
+extract_torch_weights.py`) load in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,6 +61,37 @@ def flax_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch.Tens
     return sd
 
 
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """`/`-joined keys -> the nested flax tree."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def spectral_2dcnn_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """`Spectral2DCNN.state_dict()` -> the flax param tree (numpy, float32),
+    the inverse of `flax_to_state_dict`: OIHW kernels back to HWIO, the
+    Linear (O, I) back to Dense (I, O)."""
+    n_layers = sum(1 for k in sd if k.startswith("convs.") and k.endswith(".weight"))
+    flat: Dict[str, np.ndarray] = {}
+    for i in range(n_layers):
+        flat[f"Conv_{i}/kernel"] = np.ascontiguousarray(np.transpose(_np(sd[f"convs.{i}.weight"]), (2, 3, 1, 0)))
+        flat[f"Conv_{i}/bias"] = _np(sd[f"convs.{i}.bias"])
+        flat[f"PReLU_{i}/alpha"] = _np(sd[f"prelus.{i}.alpha"])
+    flat["Dense_0/kernel"] = np.ascontiguousarray(_np(sd["out.weight"]).T)
+    flat["Dense_0/bias"] = _np(sd["out.bias"])
+    return _nest(flat)
+
+
 def load_spectral_2dcnn(
     weights: str | Mapping[str, Any], device: str | torch.device = "cuda", **model_kwargs
 ) -> Spectral2DCNN:
@@ -85,14 +118,7 @@ def flax_lstm_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch
 def lstm_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """`LSTMEffectModel.state_dict()` -> the flax param tree (numpy, float32),
     the inverse of `flax_lstm_to_state_dict`."""
-    tree: Dict[str, Any] = {}
-    for theirs, ours in _LSTM_KEYS.items():
-        node = tree
-        *parents, leaf = theirs.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = sd[ours].detach().cpu().numpy().astype(np.float32)
-    return tree
+    return _nest({theirs: _np(sd[ours]) for theirs, ours in _LSTM_KEYS.items()})
 
 
 def load_lstm_effect_model(

@@ -4,7 +4,8 @@ Rendering is data generation: nothing here needs a gradient.  The two
 recurrences run in `ops/fx_kernels.py`: K1 (`flanger`, the counterpart of
 the JAX `flanger_delay_line`) for the flanger/chorus delay line and K2 for
 the phaser cascade launch the CUDA kernels on CUDA tensors and use their
-plain versions on CPU tensors.
+plain versions on CPU tensors.  `apply_flanger_chorus` (the sim-corpus
+generators' flanger/chorus) takes K1 the same way, with no other route.
 """
 
 from __future__ import annotations
@@ -38,6 +39,49 @@ def apply_tremolo(x: torch.Tensor, mod_sig: torch.Tensor, mix=1.0) -> torch.Tens
         mod_sig = mod_sig[:, None, :]
     mix = _param_bc(mix, x.shape[0], x.device)
     return (1.0 - mix) * x + mix * mod_sig * x
+
+
+def ms_to_samples(ms: float, sr: float) -> int:
+    """Round-half-up ms -> samples."""
+    return int((ms / 1000.0) * sr + 0.5)
+
+
+def apply_flanger_chorus(
+    x: torch.Tensor,
+    mod_sig: torch.Tensor,
+    sr: float,
+    max_min_delay_ms: float,
+    max_lfo_delay_ms: float,
+    feedback=0.0,
+    min_delay_width=1.0,
+    width=1.0,
+    depth=1.0,
+    mix=1.0,
+) -> torch.Tensor:
+    """Batched mono flanger/chorus with feedback (the JAX
+    `apply_flanger_chorus`).
+
+    A fractional delay line of `max_min + max_lfo` ms; the delay a sample is
+    max_lfo_delay * width * mod_sig + min_delay_width * max_min_delay (in
+    samples, each ms length rounded half up); linear-interpolated read,
+    feedback write, depth mix, then dry/wet mix and hard clip, all in K1
+    (`fx_kernels.flanger`: the CUDA kernel on a CUDA tensor, its plain
+    version on a CPU tensor).
+
+    x: (B, C, T) dry audio; mod_sig: (B, T) or (B, C, T) in [0, 1] at audio
+    rate; the parameters scalars or (B,)."""
+    assert x.ndim == 3
+    b = x.shape[0]
+    if mod_sig.ndim == 2:
+        mod_sig = mod_sig[:, None, :]
+    mod_sig = mod_sig.to(x.device, torch.float32).expand(x.shape)
+    feedback, min_delay_width, width, depth, mix = (
+        _param_bc(p, b, x.device) for p in (feedback, min_delay_width, width, depth, mix)
+    )
+    mmd = ms_to_samples(max_min_delay_ms, sr)
+    mld = ms_to_samples(max_lfo_delay_ms, sr)
+    delay_samples = mld * width * mod_sig + min_delay_width * mmd
+    return fx_kernels.flanger(x, delay_samples, feedback, depth, mix, mmd + mld)
 
 
 def phaser_freq_max(sr: float) -> float:

@@ -160,16 +160,18 @@ class LFOExtractionTask(TrainableTask):
         self.mask_generator = self.generator = torch.Generator().manual_seed(seed)
 
     def _extract(self, dry, wet, fx, mask_draws, lfo_draws=None):
+        """(mod_hat (B, F), the extractor's latent (B, C, F), None for the
+        RandomLFO baseline)."""
         if self.is_random_lfo:
             mod_hat = self.model(
                 self.mask_generator, wet.shape[0],
                 {"shape": fx["shape"], "phase": fx["phase"], "rate_hz": fx["rate_hz"]},
                 draws=lfo_draws, device=self.device,
             )
-            return mod_hat[:, 0, :]
+            return mod_hat[:, 0, :], None
         model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
-        mod_hat, _ = self.model(model_in, mask_draws=mask_draws)
-        return mod_hat[:, 0, :]
+        mod_hat, latent = self.model(model_in, mask_draws=mask_draws)
+        return mod_hat[:, 0, :], latent
 
     def _postprocess(self, mod_hat, mod_gt):
         """smooth + stretch + target resampling and cropping."""
@@ -190,7 +192,7 @@ class LFOExtractionTask(TrainableTask):
     def _loss(self, batch, corpus, mask_draws, lfo_draws=None):
         with torch.no_grad():
             dry, wet, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
-        mod_hat = self._extract(dry, wet, fx, mask_draws, lfo_draws)
+        mod_hat, _ = self._extract(dry, wet, fx, mask_draws, lfo_draws)
         mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
         return self.losses(mod_hat, mod_gt)
 

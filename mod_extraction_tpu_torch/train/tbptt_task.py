@@ -112,6 +112,20 @@ class TBPTTEffectModelingTask(TrainableTask):
         self.discard_invalid_lfos = discard_invalid_lfos
         self.losses = WeightedLossDict(loss_dict or {"l1": 1.0, "esr": 0.0, "dc": 0.0})
 
+    def state_dict(self) -> Dict:
+        """The trainable state plus the frozen extractor's weights, as the
+        JAX package's train state keeps `lfo_params`: a checkpoint hands on
+        both (`scripts/extract_torch_weights.py ... lfo_model`)."""
+        state = super().state_dict()
+        if self.lfo_model is not None and not self.is_random_lfo:
+            state["lfo_model"] = self.lfo_model.state_dict()
+        return state
+
+    def load_state_dict(self, state: Dict) -> None:
+        super().load_state_dict(state)
+        if "lfo_model" in state:
+            self.lfo_model.load_state_dict(state["lfo_model"])
+
     # ------------------------------------------------------------- geometry
     def _cropped_n_samples(self) -> int:
         """Audio length after the proportional centre crop that follows

@@ -21,8 +21,10 @@ kernels and the library at the TBPTT shape and at the serving shapes (2,
 time the card), and K5 with its cluster walk at B 2, 3 and the TBPTT batch
 (T 1024) beside the generic walk (`ALLOW_FAST` off) and the library's
 forward + backward and backward alone, with the walk's device time and
-cycles a step; it also prints ptxas's registers and spills of the cluster
-kernels and how many clusters of each shape the card holds at once.
+cycles a step, and at the TBPTT batch K5's weight-gradient partial sums
+beside one `torch.mm` of the same operands (float32, TF32 off); it also
+prints ptxas's registers and spills of the cluster kernels and how many
+clusters of each shape the card holds at once.
 `--long 0` leaves the long walk out.
 
 Needs a CUDA device; imports torch and the port only.
@@ -41,6 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from mod_extraction_tpu_torch.ops import cuda_build  # noqa: E402
 from mod_extraction_tpu_torch.ops import lstm_kernels as lk  # noqa: E402
+from mod_extraction_tpu_torch.utils.device import set_float32_numerics  # noqa: E402
 from mod_extraction_tpu_torch.utils.timing import cuda_ms_queued  # noqa: E402
 
 SERVE_BUFFERS = (128, 512, 2048)
@@ -163,6 +166,37 @@ def time_cluster_backward(rng, t: int, batches: tuple) -> None:
             f"{k}={v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
             + f"; walk {walk / t * mhz * 1e3:.0f} cycles a step at {mhz:.0f} MHz, the multiply-adds' floor "
             f"{cs.h160_fma_cycles(*rule)}")
+        if bb == batches[-1]:
+            time_wgrad_partials(by_kernel, bb, t)
+
+
+def time_wgrad_partials(by_kernel: dict, b: int, t: int, hid: int = 160, in_dim: int = 2) -> None:
+    """K5's weight-gradient partial sums (`lstm_wgrad_partial_kernel` +
+    `lstm_wgrad_final_kernel`, device ms a launch from `by_kernel`) beside
+    their library call: one `torch.mm` in float32 with TF32 off of the same
+    operands, [x_t, h_{t-1}, 1] (B*T, H + in + 1) transposed times the
+    gate cotangents (B*T, 4H), by device time and by CUDA events back to
+    back; and the operations' bound."""
+    set_float32_numerics()
+    parts = {k: v for k, v in by_kernel.items() if "wgrad_partial" in k or "wgrad_final" in k}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn(b * t, hid + in_dim + 1, device="cuda", generator=gen)
+    g = torch.randn(b * t, 4 * hid, device="cuda", generator=gen)
+
+    def mm():
+        return torch.mm(a.t(), g)
+
+    lib_device = cs.device_ms_per_launch(mm, 10)
+    lib_events = cs.cuda_ms_median(mm)
+    n_ops = 2 * b * t * (hid + in_dim + 1) * 4 * hid
+    kernel = sum(parts.values())
+    lib = sum(lib_device.values())
+    print(f"[K5 H {hid} B={b} T={t}, weight-gradient partial sums, ms a launch] "
+          + "  ".join(f"{k}={v:.4f}" for k, v in parts.items())
+          + f"; together {kernel:.4f}; torch.mm (float32, TF32 off) device {lib:.4f} ("
+          + ", ".join(f"{k}={v:.4f}" for k, v in lib_device.items())
+          + f"), CUDA events {lib_events:.4f}; kernel / torch.mm {kernel / lib:.3f}; bound "
+          f"{n_ops / cs.F32_OPS_S * 1e3:.4f} ({n_ops / 1e9:.3f} GFLOP at {cs.F32_OPS_S / 1e12:.0f} TFLOP/s)")
 
 
 def time_cluster(rng, b: int, t: int) -> None:

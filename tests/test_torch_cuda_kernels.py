@@ -554,3 +554,31 @@ def test_streaming_artifact_on_card_matches_cpu(tmp_path):
     cpu = StreamingEffectModel(w, device="cpu")
     y_cpu, _ = cpu.process_np(cpu.init_state(), x, **knobs)
     assert np.abs(y_cpu - y_live).max() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("effect", ["chorus", "flanger"])
+def test_apply_flanger_chorus_on_card_is_plain_bit_for_bit(effect):
+    """`ops/fx.py::apply_flanger_chorus` (the sim-corpus generators' effect)
+    launches K1 once on a CUDA tensor and gives `flanger_plain`'s bits on
+    the same delays."""
+    _need_cuda()
+    from mod_extraction_tpu_torch.ops.fx import apply_flanger_chorus, ms_to_samples
+
+    rng = np.random.default_rng(17)
+    b, t, sr = 4, 6000, 44100
+    x = _u(rng, -0.8, 0.8, (b, 1, t))
+    mod = _u(rng, 0.0, 1.0, (b, t))
+    regime = dict(max_min_delay_ms=30.0, max_lfo_delay_ms=10.0, min_delay_width=0.367, width=0.8) \
+        if effect == "chorus" else dict(max_min_delay_ms=1.0, max_lfo_delay_ms=4.0, min_delay_width=1.0, width=0.5)
+    fb = _u(rng, 0.0, 0.5, (b,))
+    fx_kernels.reset_launch_counts()
+    out = apply_flanger_chorus(x, mod, sr, feedback=fb, depth=1.0, mix=0.9, **regime)
+    assert fx_kernels.LAUNCHES["flanger"] == 1
+    mmd = ms_to_samples(regime["max_min_delay_ms"], sr)
+    mld = ms_to_samples(regime["max_lfo_delay_ms"], sr)
+    delay = mld * torch.full((b, 1, 1), regime["width"], device="cuda") * mod[:, None, :] \
+        + torch.full((b, 1, 1), regime["min_delay_width"], device="cuda") * mmd
+    ones = torch.ones(b, 1, 1, device="cuda")
+    ref = fx_kernels.flanger_plain(x, delay, fb[:, None, None], ones, 0.9 * ones, mmd + mld)
+    assert torch.equal(out, ref)

@@ -45,10 +45,13 @@ def _forbidden(module: str) -> bool:
 
 # the port's entry points outside the package
 PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.py",
-                "scripts/bench_torch_streaming.py", "scripts/train_torch.py", "scripts/validate_torch.py")
+                "scripts/bench_torch_streaming.py", "scripts/train_torch.py", "scripts/validate_torch.py",
+                "scripts/extract_torch_weights.py", "scripts/validate_ckpt_torch.py",
+                "scripts/run_eval_grid_torch.py", "scripts/make_sim_effect_data_torch.py",
+                "scripts/make_sim_chorus_gt_control_torch.py")
 # the training entry point's modules (config/CLI, data pipeline, Trainer)
 ENTRY_MODULES = ("cli", "native", "train.loop", "data.wav", "data.datasets", "data.loader",
-                 "data.corpus", "data.modules")
+                 "data.corpus", "data.modules", "evaluation.tables")
 
 
 def test_no_jax_imports_in_package_or_chip_smoke():
@@ -117,7 +120,8 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
     r7 = "configs/train_em_sim_flanger_r7.yml"
     for entry in (lambda: cli.RunConfig(cli.load_yaml_with_includes(r7)), lambda: cli.fit(r7),
-                  lambda: cli.validate("configs/eval_lfo.yml")):
+                  lambda: cli.validate("configs/eval_lfo.yml"),
+                  lambda: cli.validate_many([("", cli.load_yaml_with_includes("configs/eval_lfo.yml"))])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert resolve_device("cpu").type == "cpu"
