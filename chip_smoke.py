@@ -70,7 +70,18 @@ points at full width:
   forward and the seed-2 chorus3 pair: K3 at H 64 and 160); every archive
   written with no FAILED or SKIPPED block, the launches those of the
   batches validated, each config's wall time and examples a second
-  printed, and `eval_lfo.yml` at one val batch held card against CPU.
+  printed, and `eval_lfo.yml` at one val batch held card against CPU;
+* `ddp`, data parallelism (`parallel/dist.py`) on the one card: (a) the
+  two fit configs' `cli.fit` in one rank of a real NCCL group (spawned with
+  torchrun's variables) against the same fits with no group, losses and
+  final weights bit for bit, and the stage-1 and H 64 steps timed with and
+  without the group in turns, with the TBPTT step's all-reduces alone;
+  (b) two ranks sharing the card (gloo over CUDA tensors), 16 rows each of
+  a batch of 32: the stage-1 step bit for bit the one-process step over
+  the same two halves (its loss also within 1e-5 of the full-batch step),
+  the H 64 and H 160 TBPTT steps within the JAX oracle's tolerances of the
+  full-batch step, every rank's launches those of a whole step; (c) the
+  resampler, card against CPU.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -1674,66 +1685,9 @@ def run_bench() -> list:
 FIT_TRAIN_BATCHES, FIT_VAL_BATCHES = 3, 1
 FIT_LFO_CONFIG = "configs/train_lfo_interwoven_all_live_r7.yml"
 FIT_TBPTT_CONFIG = "configs/train_em_sim_flanger_r7.yml"
-# the fixed flanger that makes stage 2's wet corpus: 1 ms + 10 ms lines
-WET_FLANGER = dict(rate_hz=0.8, min_delay_width=0.5, width=1.0, feedback=0.5, depth=0.7, mix=1.0)
-
-
 def fit_records(out_dir: str) -> list:
     (path,) = Path(out_dir).glob("*_metrics.jsonl")
     return [json.loads(line) for line in path.read_text().splitlines()]
-
-
-def write_wet_corpus(fxk, dry_root: Path, wet_root: Path) -> int:
-    """Each dry file through K1 on the card at fixed parameters (a 0.8 Hz
-    triangle LFO over the 1 ms + 10 ms flanger), written as PCM16 under the
-    same name; returns the K1 launches made."""
-    from mod_extraction_tpu_torch.data.mods import np_make_mod_signal
-    from mod_extraction_tpu_torch.data.synthetic import flanger_max_delay_samples
-    from mod_extraction_tpu_torch.data.wav import wav_read, wav_write
-
-    d = flanger_max_delay_samples(1.0, 10.0, SR)
-    mmd, mld = round(1.0 / 1000 * SR), round(10.0 / 1000 * SR)
-    launches = 0
-    for split_dir in sorted(p for p in dry_root.iterdir() if p.is_dir()):
-        paths = sorted(split_dir.glob("*.wav"))
-        dry = np.stack([wav_read(str(p))[0] for p in paths])  # (n, 1, T)
-        t = dry.shape[-1]
-        mod = np_make_mod_signal(t, SR, WET_FLANGER["rate_hz"], 0.0, "tri")
-        delay = mld * WET_FLANGER["width"] * mod + WET_FLANGER["min_delay_width"] * mmd
-        x = torch.from_numpy(dry).cuda()
-        n = x.shape[0]
-        par = {k: torch.full((n, 1, 1), WET_FLANGER[k], device="cuda") for k in ("feedback", "depth", "mix")}
-        wet = fxk.flanger(x, torch.from_numpy(np.broadcast_to(delay, (n, 1, t)).astype(np.float32)).cuda(),
-                          par["feedback"], par["depth"], par["mix"], d)
-        launches += 1
-        wet = wet.cpu().numpy()
-        out = wet_root / split_dir.name
-        out.mkdir(parents=True, exist_ok=True)
-        for p, w in zip(paths, wet):
-            wav_write(str(out / p.name), w, int(SR))
-    return launches
-
-
-def fit_config(path: str, corpus: Path, wet: Path | None) -> dict:
-    """The shipped config with its data directories on the corpus here,
-    three train batches and one val batch an epoch, a log line a step;
-    batch size, widths, optimizer, schedule and weights as shipped."""
-    from mod_extraction_tpu_torch.cli import load_yaml_with_includes
-
-    cfg = load_yaml_with_includes(path)
-    args = cfg["data"]["init_args"]
-    bs = args["batch_size"]
-    if "shared_train_args" in args:  # interwoven
-        for split, n in (("train", FIT_TRAIN_BATCHES), ("val", FIT_VAL_BATCHES)):
-            args[f"shared_{split}_args"].update(input_dir=str(corpus / split), num_examples_per_epoch=n * bs)
-    else:  # dry/wet pairs
-        for split in ("train", "val"):
-            args[f"dry_{split}_dir"] = str(corpus / split)
-            args[f"wet_{split}_dir"] = str(wet / split)
-        args["train_num_examples_per_epoch"] = FIT_TRAIN_BATCHES * bs
-        args["val_num_examples_per_epoch"] = FIT_VAL_BATCHES * bs
-    cfg["custom"]["log_every_n_steps"] = 1
-    return cfg
 
 
 def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows: list) -> dict:
@@ -1746,8 +1700,12 @@ def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows:
     import tempfile
 
     from mod_extraction_tpu_torch import cli
-    from mod_extraction_tpu_torch.data.synthetic import write_synthetic_corpus
-    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
+    from mod_extraction_tpu_torch.data.synthetic import (
+        WET_FLANGER,
+        fit_config,
+        write_synthetic_corpus,
+        write_wet_corpus,
+    )
     from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
     t_phase = time.perf_counter()
@@ -1758,11 +1716,11 @@ def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows:
         wet = None
         if "em_sim" in config:
             wet = tmp / "wet"
-            n = write_wet_corpus(fxk, tmp / "corpus", wet)
+            n = write_wet_corpus(tmp / "corpus", wet)
             print(f"[{label}] wet corpus: the dry riffs through K1 on the card ({n} launches, not counted "
                   f"on the path), {WET_FLANGER}")
         print(f"[{label}] corpus written in {time.perf_counter() - t0:.1f} s")
-        cfg = fit_config(config, tmp / "corpus", wet)
+        cfg = fit_config(config, tmp / "corpus", wet, FIT_TRAIN_BATCHES, FIT_VAL_BATCHES)
         out = tmp / "out"
 
         def counted(run):
@@ -2105,6 +2063,466 @@ def run_eval(fxk, lk, rows: list) -> dict:
                 sim_wet_err=sim_err, card_vs_cpu_rel=worst)
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel path (parallel/dist.py): cli.fit under a one-rank NCCL
+# group, the steps on two ranks of one card, and the resampler
+# ---------------------------------------------------------------------------
+
+# tests/test_multidevice.py's tolerances for the sharded step against the
+# one-device step: (loss atol, parameter atol, parameter rtol)
+DDP_TOL = {"stage 1": (1e-5, 2e-5, 1e-4), "H 64": (5e-5, 5e-5, 5e-4), "H 160": (5e-5, 5e-5, 5e-4)}
+# the stage-1 ranks' all-reduced gradients against the full-batch gradient:
+# each leaf's max |d| over its max |g|.  Sound runs read 6.8e-3 (bf16 convs)
+# and 1.2e-3 (float32): cuDNN sums B 16 in another order than B 32.  One
+# rank's own half-batch gradient, which a missing all-reduce would leave,
+# must read above the bound, or the check fails as blind.
+DDP_GRAD_BOUND = 2e-2
+DDP_RANKS = 2
+N_DDP_TIMED = 3  # steps timed in each turn, after one warm-up step
+DDP_TIMEOUT = 600.0  # seconds a spawned run may take before its ranks are killed
+RESAMPLE_PAIRS = ((44100, 48000), (48000, 44100))
+RESAMPLE_TOL = 1e-6  # max-abs, the card against its CPU run
+
+
+def ddp_task(name: str):
+    """(task on the card, its global batch as numpy) of one of the steps the
+    two-rank check holds, from fixed seeds: "stage 1" (the r7 extractor at
+    paper width, bf16 convs, an interwoven batch of 32), "H 64" (the task of
+    configs/train_em_sim_flanger_r7.yml) and "H 160" (that of
+    configs/train_em_sim_chorus_h160.yml)."""
+    from mod_extraction_tpu_torch.cli import build_optimizer, load_yaml_with_includes
+    from mod_extraction_tpu_torch.data.synthetic import (
+        CHORUS_DELAYS_MS,
+        flanger_max_delay_samples,
+        make_interwoven_batch,
+        make_synthetic_batch,
+    )
+    from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
+    from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    if name == "stage 1":
+        cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2, 3),
+                           max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
+        model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
+        task = LFOExtractionTask(model, cfg, loss_dict=LOSSES, device="cuda", seed=0)
+        return task, make_interwoven_batch(3000, BATCH, N_SAMPLES, SR)
+    if name == "H 64":
+        cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,), max_delay_samples=485)
+        extractor = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
+        task = TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM64), device="cuda"), cfg,
+                                       lfo_model=extractor, device="cuda", **TBPTT)
+        return task, make_synthetic_batch(3001, BATCH, N_SAMPLES, SR, "flanger")
+    config = load_yaml_with_includes(H160_CONFIG)
+    margs = config["model"]["init_args"]
+    kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
+                                "should_stretch", "max_n_corners", "discard_invalid_lfos", "loss_dict")}
+    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,),
+                       max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
+    extractor = load_spectral_2dcnn(str(R6), device="cuda", **PAPER, compute_dtype="bfloat16")
+    task = TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM160), device="cuda"), cfg,
+                                   lfo_model=extractor, optimizer=build_optimizer(config["optimizer"]),
+                                   device="cuda", **kw)
+    return task, make_synthetic_batch(3002, BATCH, N_SAMPLES, SR, "chorus")
+
+
+def _launch_counts() -> dict:
+    from mod_extraction_tpu_torch.ops import conv_kernels as ck
+    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
+    from mod_extraction_tpu_torch.ops import lstm_kernels as lk
+
+    return {**fxk.LAUNCHES, **ck.LAUNCHES, **lk.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from mod_extraction_tpu_torch.ops import conv_kernels as ck
+    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
+    from mod_extraction_tpu_torch.ops import lstm_kernels as lk
+
+    for c in (fxk, ck, lk):
+        c.reset_launch_counts()
+
+
+def _ddp_rank_steps(names: tuple) -> dict:
+    """One rank of the two-rank check: each step on this rank's rows of its
+    global batch, counted, its global metrics and parameters returned; then
+    one more step of the same batch, timed."""
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch
+    from mod_extraction_tpu_torch.ops import lstm_kernels as lk
+    from mod_extraction_tpu_torch.parallel.dist import shard_batch, to_numpy, world
+
+    rank, size, _ = world()
+    out = {}
+    for name in names:
+        task, batch = ddp_task(name)
+        local = batch_to_torch(shard_batch(batch, rank, size), task.device)
+        rows = local["dry"].shape[0] if "dry" in local else local["mod_sig"].shape[0]
+        _reset_launch_counts()
+        metrics = task.train_step(local)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        params = to_numpy(task.trained_model.state_dict())
+        grads = {k: p.grad.detach().float().cpu().numpy() for k, p in task.trained_model.named_parameters()
+                 if p.grad is not None}
+        t0 = time.perf_counter()
+        task.train_step(local)
+        torch.cuda.synchronize()
+        hid = getattr(getattr(task, "effect_model", None), "n_hidden", None)
+        out[name] = dict(metrics={k: float(v) for k, v in metrics.items()}, params=params, grads=grads,
+                         launches=launches,
+                         rows=rows, second_step_ms=(time.perf_counter() - t0) * 1e3,
+                         plans=None if hid is None else (lk.forward_kernel(hid, rows), lk.backward_kernel(hid, rows)))
+    return out
+
+
+def _ddp_timed_steps(tasks: dict, profile_tbptt: bool) -> dict:
+    """Host-clock ms of N_DDP_TIMED fenced train steps of each task after one
+    warm-up; with `profile_tbptt`, one H 64 step profiled: its wall, the
+    card's busy time, the NCCL kernels' device time and the host time in the
+    `dist.all_reduce` ranges, with their count."""
+    from mod_extraction_tpu_torch.utils.timing import device_busy
+
+    out = {}
+    for name, (task, batch) in tasks.items():
+        task.train_step(batch)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(N_DDP_TIMED):
+            t0 = time.perf_counter()
+            task.train_step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = ms
+    if profile_tbptt:
+        from torch.profiler import ProfilerActivity, profile
+
+        task, batch = tasks["H 64"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            task.train_step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, events = device_busy(prof)
+        ranges = [e for e in prof.key_averages() if e.key == "dist.all_reduce"
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        out["H 64 profile"] = dict(
+            wall_ms=wall, busy_ms=busy,
+            nccl_device_ms=sum(e.self_device_time_total for e in events if "nccl" in e.key.lower()) / 1e3,
+            all_reduce_host_ms=sum(e.cpu_time_total for e in ranges) / 1e3,
+            all_reduces=sum(e.count for e in ranges))
+        # the step's gradient all-reduces alone, unprofiled: 83 of the LSTM's
+        # gradients and the 2 scalar ones, host clock to a fenced end
+        from mod_extraction_tpu_torch.parallel.dist import all_reduce_grads, all_reduce_mean
+
+        params = [p for p in task.effect_model.parameters() if p.grad is not None]
+        one = torch.ones((), device=task.device)
+
+        def reduces():
+            for _ in range(task.updates_per_batch):
+                all_reduce_grads(params)
+            all_reduce_mean(one)
+            all_reduce_mean(one)
+
+        ms = []
+        for _ in range(N_DDP_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduces()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["H 64 profile"]["step_all_reduces_ms"] = ms[1:]
+    return out
+
+
+def _ddp_world1(fit_cfgs: dict, out_root: str) -> dict:
+    """The one rank of a real NCCL group: each shipped config's `cli.fit`
+    under the group, then the same fits with no group in the same process
+    (cuDNN deterministic for both), and the stage-1 and H 64 steps at batch
+    32 timed in turns: group, no group, group, no group."""
+    import copy
+    import os
+
+    import torch.distributed as dist
+
+    from mod_extraction_tpu_torch import cli
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch
+    from mod_extraction_tpu_torch.parallel.dist import init_distributed, to_numpy
+
+    torch.backends.cudnn.deterministic = True
+
+    def fits(tag):
+        res = {}
+        for label, cfg in fit_cfgs.items():
+            _reset_launch_counts()
+            out = os.path.join(out_root, f"{label.replace(' ', '_')}_{tag}")
+            task = cli.fit(copy.deepcopy(cfg), out_dir=out, device="cuda", max_epochs=1)
+            torch.cuda.synchronize()
+            recs = fit_records(out)
+            res[label] = dict(
+                losses=[r["loss"] for r in recs if r["phase"] == "train_step"]
+                + [r["val/loss"] for r in recs if r["phase"] == "epoch"],
+                params=to_numpy(task.trained_model.state_dict()), launches=_launch_counts())
+        return res
+
+    env = {k: os.environ[k] for k in ("RANK", "WORLD_SIZE")}
+
+    def leave():
+        dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+
+    def join(i):
+        os.environ.update(env)
+        init_distributed("cuda", init_method=f"file://{os.path.join(out_root, f'rendezvous{i}')}")
+
+    group = fits("group")
+    timing_tasks = {}
+    for name in ("stage 1", "H 64"):
+        task, batch = ddp_task(name)
+        timing_tasks[name] = (task, batch_to_torch(batch, task.device))
+    times = [("group", _ddp_timed_steps(timing_tasks, True))]
+    leave()
+    none = fits("none")
+    times.append(("none", _ddp_timed_steps(timing_tasks, False)))
+    join(1)
+    times.append(("group", _ddp_timed_steps(timing_tasks, True)))
+    leave()
+    times.append(("none", _ddp_timed_steps(timing_tasks, False)))
+    join(2)
+    return dict(group=group, none=none, times=times)
+
+
+def _params_close(got: dict, want: dict, atol: float, rtol: float) -> tuple:
+    """(ok, worst |got - want|, worst excess over atol + rtol |want|)."""
+    worst, excess = 0.0, -math.inf
+    for k, w in want.items():
+        d = np.abs(np.asarray(got[k], np.float64) - np.asarray(w, np.float64))
+        worst = max(worst, float(d.max()))
+        excess = max(excess, float((d - atol - rtol * np.abs(w)).max()))
+    return excess <= 0.0, worst, excess
+
+
+def add_ddp_launches(rows: list, launches: dict, tag: str, h160: bool = False) -> None:
+    """Adds a run's launches to the kernels' rows (the LSTM launches of an
+    H 160 run to the `_h160` rows), under `ddp_launches[tag]` too."""
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"].removesuffix("_h160"))
+        if not launches.get(key) or (key.startswith("lstm") and row["name"].endswith("_h160") != h160):
+            continue
+        row["launches"] += launches[key]
+        ddp = row.setdefault("ddp_launches", {})
+        ddp[tag] = ddp.get(tag, 0) + launches[key]
+
+
+def ddp_world1(rows: list, summary: dict) -> None:
+    """(a): `cli.fit` of the r7 extractor config (batch 99) and the r7
+    flanger TBPTT config (batch 32) in one rank of a real NCCL group against
+    the same fits with no group in that process: losses and final weights
+    bit for bit, the launches those of the fit phases; then the stage-1 and
+    H 64 steps at batch 32 timed with and without the group."""
+    import tempfile
+
+    from mod_extraction_tpu_torch.data.synthetic import fit_config, write_synthetic_corpus, write_wet_corpus
+    from mod_extraction_tpu_torch.parallel.dist import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_synthetic_corpus(str(tmp / "corpus"))
+        write_wet_corpus(tmp / "corpus", tmp / "wet")
+        n = (FIT_TRAIN_BATCHES, FIT_VAL_BATCHES)
+        fit_cfgs = {"fit stage 1": fit_config(FIT_LFO_CONFIG, tmp / "corpus", None, *n),
+                    "fit stage 2": fit_config(FIT_TBPTT_CONFIG, tmp / "corpus", tmp / "wet", *n)}
+        t0 = time.perf_counter()
+        (w1,) = run_ranks(_ddp_world1, 1, args=(fit_cfgs, str(tmp / "out")), device="cuda",
+                          timeout=DDP_TIMEOUT)
+        print(f"[ddp (a)] one NCCL rank and no group in one process: {time.perf_counter() - t0:.1f} s")
+    n_batches = FIT_TRAIN_BATCHES + FIT_VAL_BATCHES
+    want_launches = {"fit stage 1": dict(flanger=n_batches, phaser=n_batches),
+                     "fit stage 2": dict(lstm_forward=n_batches, lstm_train_forward=FIT_TRAIN_BATCHES * 83,
+                                         lstm_backward=FIT_TRAIN_BATCHES * 83)}
+    for label in fit_cfgs:
+        g, n = w1["group"][label], w1["none"][label]
+        diff = [k for k in n["params"] if not np.array_equal(g["params"][k], n["params"][k])]
+        print(f"[ddp (a) {label}] losses with the NCCL group {g['losses']}, without {n['losses']}; "
+              f"launches {g['launches']}")
+        if g["losses"] != n["losses"] or diff:
+            worst = max((float(np.abs(g["params"][k] - n["params"][k]).max()) for k in diff), default=0.0)
+            fail(f"ddp (a) {label}: world 1 under NCCL differs from no group: losses {g['losses']} vs "
+                 f"{n['losses']}, {len(diff)} parameter tensors differ (max |d| {worst:.3e}): {diff[:5]}")
+        for got in (g["launches"], n["launches"]):
+            if {k: v for k, v in got.items() if v} != want_launches[label]:
+                fail(f"ddp (a) {label}: launches {got}, expected {want_launches[label]}")
+        add_ddp_launches(rows, g["launches"], f"(a) {label}")
+    print(f"[ddp (a)] world 1 under NCCL == no group, losses and final weights bit for bit, for "
+          f"{FIT_LFO_CONFIG} and {FIT_TBPTT_CONFIG}")
+    turns = w1["times"]
+    for name in ("stage 1", "H 64"):
+        per = [(tag, float(np.median(t[name]))) for tag, t in turns]
+        print(f"[ddp (a) {name} step at batch {BATCH}, ms (median of {N_DDP_TIMED}) in turns] "
+              + ", ".join(f"{tag} {ms:.3f}" for tag, ms in per)
+              + f"; readings {[(tag, [round(x, 3) for x in t[name]]) for tag, t in turns]}")
+        g_ms = float(np.mean([ms for tag, ms in per if tag == "group"]))
+        n_ms = float(np.mean([ms for tag, ms in per if tag == "none"]))
+        summary[f"{name} step ms"] = dict(group=g_ms, none=n_ms, overhead=g_ms / n_ms - 1.0)
+    profs = [t["H 64 profile"] for tag, t in turns if "H 64 profile" in t]
+    for p in profs:
+        print(f"[ddp (a) H 64 step profiled under the group] wall {p['wall_ms']:.3f} ms, busy "
+              f"{p['busy_ms']:.3f} ms; {p['all_reduces']} all-reduces: host {p['all_reduce_host_ms']:.3f} ms "
+              f"({p['all_reduce_host_ms'] / p['wall_ms']:.4f} of the wall), NCCL kernels "
+              f"{p['nccl_device_ms']:.3f} ms ({p['nccl_device_ms'] / p['busy_ms']:.4f} of the busy time); "
+              f"the step's 85 all-reduces alone, unprofiled: {[round(x, 3) for x in p['step_all_reduces_ms']]} ms")
+    summary["H 64 all-reduce"] = profs
+
+
+def _diffs(got: dict, ref: dict, tol: tuple) -> dict:
+    """A rank's step against a one-process step: loss |d|, the parameters'
+    largest |d|, their excess over the tolerance and the elements past it,
+    and the gradients' largest |d| over their leaf's largest |g|."""
+    loss_tol, atol, rtol = tol
+    ok, worst, excess = _params_close(got["params"], ref["params"], atol, rtol)
+    return dict(
+        loss=abs(got["metrics"]["loss"] - ref["metrics"]["loss"]), params=worst, params_ok=ok, excess=excess,
+        outside=sum(int((np.abs(got["params"][k] - w) > atol + rtol * np.abs(w)).sum())
+                    for k, w in ref["params"].items()),
+        grads=max(float(np.abs(got["grads"][k] - g).max() / max(np.abs(g).max(), 1e-30))
+                  for k, g in ref["grads"].items()),
+        bits=all(np.array_equal(got["params"][k], w) for k, w in ref["params"].items()))
+
+
+def _one_process_step(name: str, sub_batches: int = 1, first_rows_only: bool = False) -> dict:
+    """The one-process step of `name` on its whole batch (with
+    `sub_batches`, the stage-1 task's `sub_batch_size` over the same halves
+    the ranks take, with the same SpecAugment draws in each; with
+    `first_rows_only`, on rank 0's rows alone, as that rank computes its
+    gradient before the all-reduce), counted."""
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch
+    from mod_extraction_tpu_torch.parallel.dist import shard_batch
+
+    task, batch = ddp_task(name)
+    if first_rows_only:
+        batch = shard_batch(batch, 0, DDP_RANKS)
+    kw = {}
+    if sub_batches > 1:
+        task.sub_batch_size = BATCH // sub_batches
+        kw["mask_draws"] = torch.rand(4, generator=torch.Generator().manual_seed(0)).expand(sub_batches, 4)
+    _reset_launch_counts()
+    metrics = task.train_step(batch_to_torch(batch, task.device), **kw)
+    torch.cuda.synchronize()
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, launches=_launch_counts(),
+                params={k: v.detach().float().cpu().numpy() for k, v in task.trained_model.state_dict().items()},
+                grads={k: p.grad.detach().float().cpu().numpy() for k, p in task.trained_model.named_parameters()
+                       if p.grad is not None})
+
+
+def ddp_two_ranks(rows: list, summary: dict) -> None:
+    """(b): two ranks on the card (gloo over CUDA tensors: NCCL refuses two
+    ranks on one device), each on 16 rows of a batch of 32, each rank's
+    launches those of a whole step.  The H 64 and H 160 TBPTT steps are held
+    against the one-process step on the full batch within the JAX oracle's
+    tolerances.  The stage-1 step is held three ways: its all-reduced
+    gradients against the full-batch gradient within `DDP_GRAD_BOUND` (and
+    rank 0's own half-batch gradient, the control, outside it), its loss
+    against the full-batch step's, and its parameters bit for bit against
+    the one-process step over the same two halves (`sub_batch_size` 16: the
+    mean of the two halves' gradients, one AdamW update).  Its parameters
+    against the full-batch step are printed beside them, not held: cuDNN
+    sums B 16 in another order than B 32, and AdamW's first update,
+    lr * g / (|g| + eps), turns a gradient whose sign those sums flip into
+    a 2 lr difference."""
+    from mod_extraction_tpu_torch.parallel.dist import run_ranks
+
+    names = ("stage 1", "H 64", "H 160")
+    t0 = time.perf_counter()
+    ranks = run_ranks(_ddp_rank_steps, DDP_RANKS, args=(names,), device="cuda", backend="gloo",
+                      local_ranks=[0] * DDP_RANKS, timeout=DDP_TIMEOUT)
+    print(f"[ddp (b)] {DDP_RANKS} ranks on one card (gloo): {time.perf_counter() - t0:.1f} s")
+    problems = []
+    for name in names:
+        tol = DDP_TOL[name]
+        full = _one_process_step(name)
+        refs = {"full batch": full}
+        if name == "stage 1":
+            refs["two halves"] = _one_process_step(name, DDP_RANKS)
+            control = _diffs(_one_process_step(name, first_rows_only=True), full, tol)["grads"]
+            print(f"[ddp (b) {name} control] rank 0's own half-batch gradient (no all-reduce) vs the full-batch "
+                  f"gradient: max over leaves of max |d| / max |g| {control:.3e} (bound {DDP_GRAD_BOUND})")
+            if not control > DDP_GRAD_BOUND:
+                problems.append(f"ddp (b) {name}: the control reads {control}, within the gradient bound "
+                                f"{DDP_GRAD_BOUND}: the bound cannot see a missing all-reduce")
+            summary[f"(b) {name} gradients"] = dict(bound=DDP_GRAD_BOUND, control=control, ranks=[])
+        for r, res in enumerate(ranks):
+            got = res[name]
+            for label, ref in refs.items():
+                d = _diffs(got, ref, tol)
+                print(f"[ddp (b) {name} rank {r}, {got['rows']} rows, vs one process on the {label}] loss "
+                      f"{got['metrics']['loss']:.7f} vs {ref['metrics']['loss']:.7f} (|d| {d['loss']:.3e}, "
+                      f"tolerance {tol[0]}); parameters max |d| {d['params']:.3e} (atol {tol[1]}, rtol {tol[2]}: "
+                      f"{d['outside']} of {sum(w.size for w in ref['params'].values())} outside; bit for bit "
+                      f"{d['bits']}); gradients max |d| / max |g| {d['grads']:.3e}")
+                if name != "stage 1":
+                    held = d["params_ok"]
+                elif label == "two halves":
+                    held = d["bits"]
+                else:
+                    summary[f"(b) {name} gradients"]["ranks"].append(d["grads"])
+                    held = d["grads"] <= DDP_GRAD_BOUND
+                if d["loss"] > tol[0] or not held:
+                    problems.append(f"ddp (b) {name} rank {r} vs {label}: loss |d| {d['loss']}, parameters "
+                                    f"excess {d['excess']}, bit for bit {d['bits']}, gradients {d['grads']}")
+            print(f"[ddp (b) {name} rank {r}] launches {got['launches']}; LSTM plans {got['plans']}; a second "
+                  f"step {got['second_step_ms']:.3f} ms (two ranks sharing the card: a correctness run, not a "
+                  f"speed figure)")
+            if got["rows"] != BATCH // DDP_RANKS or got["launches"] != full["launches"]:
+                problems.append(f"ddp (b) {name} rank {r}: {got['rows']} rows, launches {got['launches']}; the "
+                                f"one-process step launched {full['launches']}")
+            if not all(math.isfinite(v) for v in got["metrics"].values()):
+                problems.append(f"ddp (b) {name} rank {r}: non-finite metrics {got['metrics']}")
+            add_ddp_launches(rows, got["launches"], f"(b) {name}", h160=name == "H 160")
+        summary[f"(b) {name}"] = dict(loss=full["metrics"]["loss"],
+                                      second_step_ms=[res[name]["second_step_ms"] for res in ranks])
+    for p in problems:
+        print(f"FAIL: {p}")
+    if problems:
+        fail(f"ddp (b): {len(problems)} check(s) failed")
+
+
+def ddp_resample(summary: dict) -> None:
+    """(c): the resampler on the card against its CPU run, 44100 -> 48000
+    and back, on a synthetic riff of two seconds."""
+    from mod_extraction_tpu_torch.ops.resample import resample
+
+    rng = np.random.default_rng(12)
+    t = np.arange(int(SR) * 2) / SR
+    riff = np.zeros(t.size, np.float32)
+    for start, f in zip(rng.uniform(0, 1.8, 8), rng.uniform(80, 700, 8)):
+        riff += (0.3 * np.exp(-(t - start) * 5.0) * np.sin(2 * np.pi * f * t) * (t >= start)).astype(np.float32)
+    for orig, new in RESAMPLE_PAIRS:
+        x = riff if orig == int(SR) else resample(riff, int(SR), orig, device="cpu").numpy()
+        card = resample(x, orig, new, device="cuda").cpu()
+        cpu = resample(x, orig, new, device="cpu")
+        err = max_abs(card, cpu)
+        print(f"[ddp (c) resample {orig} -> {new}] {x.shape[-1]} -> {card.shape[-1]} samples, card vs CPU "
+              f"max_abs={err:.3e} (tolerance {RESAMPLE_TOL})")
+        if card.shape != cpu.shape or card.shape[-1] != math.ceil(x.shape[-1] * new / orig) or not err <= RESAMPLE_TOL:
+            fail(f"resample {orig} -> {new}: shape {tuple(card.shape)}, card vs CPU {err}")
+        summary[f"resample {orig}->{new} max_abs"] = err
+
+
+def run_ddp(rows: list) -> dict:
+    """The data-parallel phase on the one card: (a) `ddp_world1`, (b)
+    `ddp_two_ranks`, (c) `ddp_resample`."""
+    t_phase = time.perf_counter()
+    summary = {}
+    ddp_world1(rows, summary)
+    ddp_two_ranks(rows, summary)
+    ddp_resample(summary)
+    summary["s"] = time.perf_counter() - t_phase
+    print(f"[ddp total] {summary['s']:.1f} s")
+    return summary
+
+
 # the kernels line's rows -> the launch counters of their wrappers
 ROW_COUNTER = {
     "flanger_delay_line": "flanger", "phaser_allpass": "phaser", "conv_wgrad_tapcat": "conv_wgrad",
@@ -2180,6 +2598,7 @@ def main() -> int:
     }
     print("[fits] " + json.dumps(fits))
     print("[eval] " + json.dumps(run_eval(fxk, lk, rows)))
+    print("[ddp] " + json.dumps(run_ddp(rows)))
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

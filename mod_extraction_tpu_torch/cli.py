@@ -20,12 +20,18 @@ Kept from the JAX package:
 * `validate`, which prints the archived `eval/*.txt` table
   (`evaluation/tables.py`) and writes `custom.save_latents`, and
   `validate_many`, which sweeps data/checkpoint variants over one task
-  (what `scripts/run_eval_grid_torch.py` calls).
+  (what `scripts/run_eval_grid_torch.py` calls),
+* `custom.log_media` (`utils/plotting.py`, matplotlib imported only then)
+  every `custom.media_every_n_epochs` epochs (default 10),
+* data parallelism as the JAX package takes every visible device: under
+  `torchrun --nproc_per_node N` each entry point joins the process group
+  from the environment and trains on its rank's share of the config's
+  `batch_size`, the global batch (`parallel/dist.py`).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU.  What the port does not have yet raises `NotImplementedError`
-naming its place in ROADMAP.md's queue 1: the TCN extractors, the TBPTT
-variants and media logging.
+naming its place in ROADMAP.md's queue 1: the TCN extractors and the TBPTT
+variants.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, fla
 from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
+from mod_extraction_tpu_torch.parallel.dist import check_replicated, process_group
 from mod_extraction_tpu_torch.paths import CONFIGS_DIR, ROOT_DIR, ensure_dir
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask, adamw
 from mod_extraction_tpu_torch.train.loop import Trainer, _tree_map, host_batch_to_torch
@@ -340,11 +347,6 @@ class RunConfig:
         self.device = resolve_device(device)
         self.seed = int(cfg.get("seed_everything", 42))
         custom = cfg.get("custom") or {}
-        if custom.get("log_media", False):
-            raise NotImplementedError(
-                "custom.log_media: the media callbacks (utils/plotting.py) are queued in "
-                "ROADMAP.md, queue 1"
-            )
         self.project_name = custom.get("project_name", "mod_extraction_tpu")
         self.model_name = custom.get("model_name", "model")
         self.dataset_name = custom.get("dataset_name", "dataset")
@@ -423,6 +425,27 @@ def _load_config(config: str | Dict[str, Any]) -> Dict[str, Any]:
     return load_yaml_with_includes(config) if isinstance(config, str) else config
 
 
+def _media_callback_for(run: RunConfig) -> Optional[Callable]:
+    """The media hook of `custom.log_media` (spectrograms and LFO overlays
+    for the extractor, waveforms and audio for the effect model; written
+    to `<out_dir>/<run>_media/ep<epoch>/`), or None.  matplotlib is imported
+    only here: without it, `log_media: true` raises."""
+    if not (run.raw.get("custom") or {}).get("log_media", False):
+        return None
+    try:
+        from mod_extraction_tpu_torch.utils import plotting
+    except ModuleNotFoundError as e:
+        if (e.name or "").split(".")[0] != "matplotlib":
+            raise
+        raise ImportError(
+            "custom.log_media: true needs matplotlib, which is not installed; install it or "
+            "set log_media: false"
+        ) from e
+    if isinstance(run.task, TBPTTEffectModelingTask):
+        return plotting.em_media_callback()
+    return plotting.lfo_media_callback()
+
+
 def fit(
     config: str | Dict[str, Any],
     out_dir: str = "out",
@@ -434,7 +457,14 @@ def fit(
 ):
     """Train as the config says; `config` is a path or an already-loaded
     dict.  Returns the trained task.  `sync_copies` and `profile_steps` (the
-    window profiled when `custom.profile_dir` is set) as in `Trainer`."""
+    window profiled when `custom.profile_dir` is set) as in `Trainer`.
+    Under torchrun (or inside a process group) every rank trains on its
+    share of each batch (`parallel/dist.py`)."""
+    with process_group(device):
+        return _fit(config, out_dir, resume, max_epochs, device, sync_copies, profile_steps)
+
+
+def _fit(config, out_dir, resume, max_epochs, device, sync_copies, profile_steps):
     run = RunConfig(_load_config(config), device)
     custom = run.raw.get("custom") or {}
     # `custom.init_weights_path`: warm-start a fresh run from a bare
@@ -462,6 +492,8 @@ def fit(
         out_dir=out_dir,
         run_name=run.run_name,
         resume=resume,
+        media_callback=_media_callback_for(run),
+        media_every_n_epochs=int(custom.get("media_every_n_epochs", 10)),
         log_every_n_steps=int(custom.get("log_every_n_steps", 50)),
         lr=display_lr,
         profile_dir=custom.get("profile_dir"),
@@ -486,6 +518,7 @@ def _load_eval_state(run: RunConfig, trainer: Trainer, ckpt_path: Optional[str])
         model.load_state_dict(_load_lfo_weights(model, ckpt_path))
     elif trainer.ckpts.restore(ckpt_path, run.task) is None:
         log.warning("checkpoint %s not found; validating with random init", ckpt_path)
+    check_replicated(run.task.trained_model.parameters())
 
 
 def _save_latents(run: RunConfig, trainer: Trainer, out_dir: str) -> None:
@@ -512,16 +545,21 @@ def validate(
 ) -> Dict[str, float]:
     """Validation run over the config's val set, with the weights of
     `ckpt_path` (default: the config's `ckpt_path`); prints the eval table
-    (the archived `eval/*.txt` format) and returns the metrics."""
-    run = RunConfig(_load_config(config), device)
-    trainer = Trainer(run.task, run.data_module, out_dir=out_dir, run_name=run.run_name + "_eval")
-    _load_eval_state(run, trainer, ckpt_path or run.ckpt_path)
-    metrics = trainer.validate()
-    custom = run.raw.get("custom") or {}
-    if custom.get("save_latents", False) and isinstance(run.task, LFOExtractionTask) and run.task.has_params:
-        _save_latents(run, trainer, out_dir)
-    print(format_validate_table({f"val/{k}": v for k, v in metrics.items()}))
-    return metrics
+    (the archived `eval/*.txt` format) and returns the metrics.  Under
+    torchrun the val batches are sharded and rank 0 prints and writes."""
+    with process_group(device):
+        run = RunConfig(_load_config(config), device)
+        trainer = Trainer(run.task, run.data_module, out_dir=out_dir, run_name=run.run_name + "_eval",
+                          media_callback=_media_callback_for(run))
+        _load_eval_state(run, trainer, ckpt_path or run.ckpt_path)
+        metrics = trainer.validate()
+        if trainer.is_chief:
+            custom = run.raw.get("custom") or {}
+            if custom.get("save_latents", False) and isinstance(run.task, LFOExtractionTask) \
+                    and run.task.has_params:
+                _save_latents(run, trainer, out_dir)
+            print(format_validate_table({f"val/{k}": v for k, v in metrics.items()}))
+        return metrics
 
 
 def validate_many(variants: list, out_dir: str = "out", device: str | torch.device = "cuda") -> list:
@@ -537,6 +575,11 @@ def validate_many(variants: list, out_dir: str = "out", device: str | torch.devi
     the RandomLFO baseline loads nothing.  The task's generator restarts
     from the seed for each variant, so every variant's metrics are those of
     `validate` on its config alone."""
+    with process_group(device):
+        return _validate_many(variants, out_dir, device)
+
+
+def _validate_many(variants: list, out_dir: str, device: str | torch.device) -> list:
     assert variants
     results = []
     run: Optional[RunConfig] = None

@@ -3,11 +3,14 @@ and the bench: the numpy copy of `mod_extraction_tpu/data/synthetic.py::
 make_synthetic_batch`, the interwoven (flanger + chorus + phaser) batch the stage-1 path trains
 on, and `write_synthetic_corpus`, the port's copy of the corpora that
 `scripts/make_synthetic_corpus.py` writes (the riffs and the unseen-audio
-styles; same files, byte for byte)."""
+styles; same files, byte for byte), with `write_wet_corpus` and
+`fit_config`, which point a shipped training config at such a corpus
+(`chip_smoke.py`, `scripts/fit_ddp_torch.py`)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional
 
 import os
 
@@ -431,3 +434,64 @@ def write_synthetic_corpus(
             wav_write(path, render(rng, n_samples, bpm), CORPUS_SR)
             paths.append(path)
     return paths
+
+
+# the fixed flanger that makes a dry/wet fit's wet corpus: 1 ms + 10 ms lines
+WET_FLANGER = dict(rate_hz=0.8, min_delay_width=0.5, width=1.0, feedback=0.5, depth=0.7, mix=1.0)
+
+
+def write_wet_corpus(dry_root: str | Path, wet_root: str | Path, device: str | torch.device = "cuda") -> int:
+    """Each split's dry files through K1 (`ops/fx_kernels.py::flanger`) on
+    `device` at fixed parameters (`WET_FLANGER`: a 0.8 Hz triangle LFO over
+    the 1 ms + 10 ms flanger), written as PCM16 under the same names in
+    `wet_root`; returns the K1 calls made."""
+    from mod_extraction_tpu_torch.data.wav import wav_read
+    from mod_extraction_tpu_torch.ops import fx_kernels
+
+    device = resolve_device(device)
+    calls = 0
+    for split_dir in sorted(p for p in Path(dry_root).iterdir() if p.is_dir()):
+        paths = sorted(split_dir.glob("*.wav"))
+        reads = [wav_read(str(p)) for p in paths]
+        sr = float(reads[0][1])
+        dry = np.stack([audio for audio, _ in reads])  # (n, 1, T)
+        n, t = dry.shape[0], dry.shape[-1]
+        mod = np_make_mod_signal(t, sr, WET_FLANGER["rate_hz"], 0.0, "tri")
+        delay = round(10.0 / 1000 * sr) * WET_FLANGER["width"] * mod + WET_FLANGER["min_delay_width"] * round(
+            1.0 / 1000 * sr)
+        par = {k: torch.full((n, 1, 1), WET_FLANGER[k], device=device) for k in ("feedback", "depth", "mix")}
+        wet = fx_kernels.flanger(
+            torch.from_numpy(dry).to(device),
+            torch.from_numpy(np.broadcast_to(delay, (n, 1, t)).astype(np.float32)).to(device),
+            par["feedback"], par["depth"], par["mix"], flanger_max_delay_samples(*FLANGER_DELAYS_MS, sr))
+        calls += 1
+        out = Path(wet_root) / split_dir.name
+        out.mkdir(parents=True, exist_ok=True)
+        for p, w in zip(paths, wet.cpu().numpy()):
+            wav_write(str(out / p.name), w, int(sr))
+    return calls
+
+
+def fit_config(path: str, corpus: str | Path, wet: Optional[str | Path], train_batches: int,
+               val_batches: int = 1) -> dict:
+    """The shipped training config at `path` with its data directories on
+    `corpus` (and `wet`, for dry/wet pairs), `train_batches` train batches
+    and `val_batches` val batches an epoch and a log line a step; batch
+    size, widths, optimizer, schedule and weights as shipped."""
+    from mod_extraction_tpu_torch.cli import load_yaml_with_includes
+
+    corpus = Path(corpus)
+    cfg = load_yaml_with_includes(path)
+    args = cfg["data"]["init_args"]
+    bs = args["batch_size"]
+    if "shared_train_args" in args:  # interwoven
+        for split, n in (("train", train_batches), ("val", val_batches)):
+            args[f"shared_{split}_args"].update(input_dir=str(corpus / split), num_examples_per_epoch=n * bs)
+    else:  # dry/wet pairs
+        for split in ("train", "val"):
+            args[f"dry_{split}_dir"] = str(corpus / split)
+            args[f"wet_{split}_dir"] = str(Path(wet) / split)
+        args["train_num_examples_per_epoch"] = train_batches * bs
+        args["val_num_examples_per_epoch"] = val_batches * bs
+    cfg["custom"]["log_every_n_steps"] = 1
+    return cfg

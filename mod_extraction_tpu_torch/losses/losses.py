@@ -2,7 +2,7 @@
 sdl1 for the stage-1 extractor, esr and dc for the stage-2 effect model, the
 two spectral losses (log_mel_l1, mrstft), and the weighted loss dict.  Every
 loss is `(y_hat, y, weights=None) -> scalar`, with `weights` an optional
-(B,) per-example weight.
+(B,) per-example weight (or `BatchWeights`).
 
 `mr_stft_loss` is auraloss's `MultiResolutionSTFTLoss` with its default
 resolutions: fft (1024, 2048, 512), hop (120, 240, 50), win (600, 1200,
@@ -11,7 +11,7 @@ semantics; like the JAX function it ignores `weights`."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,14 +19,31 @@ import torch
 from mod_extraction_tpu_torch.ops.stft import hann_window, mel_spectrogram
 
 
-def _wmean(per_example: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over examples (axis 0); extra axes are averaged first."""
+class BatchWeights(NamedTuple):
+    """Per-example weights (B,) with the sum that divides a weighted mean
+    of them.  Under data parallelism (`parallel/dist.py`) the tasks make it
+    once a batch with the mean over the ranks of each rank's sum(w): each
+    rank's sum(w * x) over that is a value whose mean over the ranks, and
+    that of its gradients, is the global weighted mean, whatever share of
+    the weight each rank holds.  No loss starts a collective of its own."""
+
+    values: torch.Tensor
+    total: torch.Tensor
+
+
+def _wmean(per_example: torch.Tensor, weights) -> torch.Tensor:
+    """Mean over examples (axis 0); extra axes are averaged first.
+    `weights`: None, a (B,) tensor (divided by its own sum) or
+    `BatchWeights` (divided by its `total`).  An unweighted mean over equal
+    shards needs nothing more under data parallelism."""
     if per_example.ndim > 1:
         per_example = per_example.reshape(per_example.shape[0], -1).mean(dim=-1)
     if weights is None:
         return per_example.mean()
-    w = weights.to(per_example.dtype)
-    return (per_example * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    if not isinstance(weights, BatchWeights):
+        weights = BatchWeights(weights, weights.sum())
+    w = weights.values.to(per_example.dtype)
+    return (per_example * w).sum() / torch.clamp(weights.total.to(per_example.dtype), min=1e-8)
 
 
 def l1_loss(y_hat, y, weights=None):
@@ -96,16 +113,27 @@ def mr_stft_loss(
     fft_sizes=(1024, 2048, 512),
     hop_sizes=(120, 240, 50),
     win_lengths=(600, 1200, 240),
+    sum_over_ranks: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Multi-resolution STFT loss: mean over resolutions of (spectral
-    convergence + log-magnitude L1)."""
+    convergence + log-magnitude L1).  Under data parallelism the caller
+    passes `sum_over_ranks` (`parallel/dist.py::all_reduce_sum_autograd`)
+    and the spectral convergence takes the global batch's norms."""
     yh = y_hat.reshape(-1, y_hat.shape[-1])
     yt = y.reshape(-1, y.shape[-1])
     total = 0.0
     for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
         mh = _stft_mag(yh, n_fft, hop, win)
         mt = _stft_mag(yt, n_fft, hop, win)
-        sc = torch.linalg.norm(mt - mh) / torch.clamp(torch.linalg.norm(mt), min=1e-8)
+        if sum_over_ranks is not None:
+            # the batch's norms, not the shard's: every rank computes the
+            # global ratio, and the backward of the sum over the ranks hands
+            # each rank the gradient of its own rows
+            num = sum_over_ranks(((mt - mh) ** 2).sum())
+            den = sum_over_ranks((mt**2).sum().detach())
+            sc = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-8)
+        else:
+            sc = torch.linalg.norm(mt - mh) / torch.clamp(torch.linalg.norm(mt), min=1e-8)
         log_mag = torch.mean(torch.abs(torch.log(mt) - torch.log(mh)))
         total = total + sc + log_mag
     return total / len(fft_sizes)
@@ -138,12 +166,16 @@ class WeightedLossDict:
         self.loss_dict = dict(loss_dict)
 
     def __call__(
-        self, y_hat, y, weights=None
+        self, y_hat, y, weights=None, sum_over_ranks=None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """`sum_over_ranks`: under data parallelism, the autograd sum over
+        the ranks that `mrstft` takes its global norms with (None
+        otherwise)."""
         metrics = {}
         total = torch.zeros((), dtype=torch.float32, device=y_hat.device)
         for name, weight in self.loss_dict.items():
-            val = _LOSS_REGISTRY[name](y_hat, y, weights)
+            kw = {"sum_over_ranks": sum_over_ranks} if name == "mrstft" and sum_over_ranks else {}
+            val = _LOSS_REGISTRY[name](y_hat, y, weights, **kw)
             metrics[name] = val
             if weight > 0:
                 total = total + weight * val

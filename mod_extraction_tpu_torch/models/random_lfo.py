@@ -8,7 +8,7 @@ it like the other extractors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -35,8 +35,9 @@ class RandomLFO:
         fx_params: Optional[dict] = None,
         draws: Optional[dict] = None,
         device: str | torch.device = "cpu",
+        shard: Tuple[int, int] = (0, 1),
     ) -> torch.Tensor:
-        """Returns (B, 1, n_samples) on `device`; `draws` as in
+        """Returns (B, 1, n_samples) on `device`; `draws` and `shard` as in
         `make_rand_mod_signal`."""
         shapes_gt = phase_gt = freq_gt = None
         if self.use_shape_gt:
@@ -51,6 +52,6 @@ class RandomLFO:
         out = make_rand_mod_signal(
             generator, batch_size, self.n_samples, self.sr, self.freq_min, self.freq_max,
             shapes_gt, self.shapes, phase_gt, self.phase_error, freq_gt, self.freq_error,
-            draws=draws, device=device,
+            draws=draws, device=device, shard=shard,
         )
         return out[:, None, :]

@@ -152,10 +152,11 @@ def channels_last_bf16(a: torch.Tensor) -> torch.Tensor:
     if a.dtype not in (torch.float32, torch.bfloat16):
         a = a.to(torch.float32)
     a = a.contiguous()
-    rc = _load().conv_wgrad_channels_last(
-        a.data_ptr(), out.data_ptr(), b, c, f, t, int(a.dtype == torch.float32),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    with torch.cuda.device(a.device):  # the launch goes to the card of its tensors
+        rc = _load().conv_wgrad_channels_last(
+            a.data_ptr(), out.data_ptr(), b, c, f, t, int(a.dtype == torch.float32),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"conv_wgrad channels-last copy failed: cudaError {rc}")
     return out
@@ -191,11 +192,12 @@ def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch
     partial = torch.empty(n_split, kf, kt, co, ci, dtype=torch.float32, device=x.device)
     out = torch.empty(co, ci, kf, kt, dtype=torch.float32, device=x.device)
     LAUNCHES["conv_wgrad"] += 1
-    rc = lib.conv_wgrad(
-        xb.data_ptr(), gb.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        bsz, ci, co, f, t, kf, kt, dil, n_split,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        rc = lib.conv_wgrad(
+            xb.data_ptr(), gb.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            bsz, ci, co, f, t, kf, kt, dil, n_split,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"conv_wgrad kernel launch failed: code {rc} (a cudaError; -1: no "
                            f"cuTensorMapEncodeTiled in libcuda; -1000 - CUresult: it refused)")

@@ -211,15 +211,16 @@ def flanger(x, delay_samples, feedback, depth, mix, max_delay_samples: int, *,
     out = torch.empty_like(xs)
     stats = torch.zeros(b * c, 2, dtype=torch.int32, device=x.device) if step_counts else None
     LAUNCHES["flanger"] += 1
-    _check(
-        lib.flanger_forward(
-            xs.data_ptr(), ds.data_ptr(), fb.data_ptr(), dp.data_ptr(),
-            mx.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
-            b * c, t, d, int(walk), int(fixed_step),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "flanger",
-    )
+    with torch.cuda.device(x.device):  # the launch goes to the card of its tensors
+        _check(
+            lib.flanger_forward(
+                xs.data_ptr(), ds.data_ptr(), fb.data_ptr(), dp.data_ptr(),
+                mx.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+                b * c, t, d, int(walk), int(fixed_step),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            ),
+            "flanger",
+        )
     return (out, stats) if step_counts else out
 
 
@@ -288,14 +289,15 @@ def phaser(x, g_all, feedback, mix, n_stages: int = 6, chunk_states: bool = Fals
     scratch = torch.empty(lib.phaser_scratch_floats(b * c, t, n_stages, chunk), dtype=torch.float32,
                           device=x.device)
     LAUNCHES["phaser"] += 1
-    _check(
-        lib.phaser_forward(
-            xs.data_ptr(), gs.data_ptr(), fb.data_ptr(), mx.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), b * c, t, n_stages, chunk,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "phaser",
-    )
+    with torch.cuda.device(x.device):
+        _check(
+            lib.phaser_forward(
+                xs.data_ptr(), gs.data_ptr(), fb.data_ptr(), mx.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), b * c, t, n_stages, chunk,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            ),
+            "phaser",
+        )
     if not chunk_states:
         return out
     z, n_chunks = n_stages + 1, -(-t // chunk)

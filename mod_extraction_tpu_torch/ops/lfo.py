@@ -10,7 +10,7 @@ constant step), and the rectified shapes halve frequency and phase.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -101,6 +101,7 @@ def make_rand_mod_signal(
     freq_error: float = 0.25,
     draws: Optional[dict] = None,
     device: str | torch.device = "cpu",
+    shard: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Batched random LFO, optionally anchored to ground-truth fx params:
     * with phase_gt: phase = (gt + U[-1, 1) * pi * phase_error) mod 2pi
@@ -113,15 +114,22 @@ def make_rand_mod_signal(
     in [0, 1), and "shape", (B,) integer positions in the pool.  The JAX
     package draws with threefry, whose numbers a torch generator cannot
     give, so the tests feed both sides the same draws.  Returns (B,
-    n_samples) on `device`."""
+    n_samples) on `device`.
+
+    `shard` = (rank, world): the batch is one rank's block of a global
+    batch of B * world rows (`parallel/dist.py`); the generator draws for
+    the global batch and the rank keeps its rows, so every rank's generator
+    stays in step and the rows are those of the one-process run."""
     if shapes is None:
         shapes = DEFAULT_RAND_SHAPES
     dev = torch.device(device)
+    rank, n_shards = shard
+    rows = slice(rank * batch_size, (rank + 1) * batch_size)
 
     def uniform(name: str) -> torch.Tensor:
         if draws is not None:
             return torch.tensor(draws[name], dtype=torch.float32).reshape(-1).to(dev)
-        return torch.rand(batch_size, generator=generator).to(dev)
+        return torch.rand(batch_size * n_shards, generator=generator)[rows].to(dev)
 
     def scaled(name: str, low: float, high: float) -> torch.Tensor:
         return uniform(name) * (high - low) + low
@@ -151,7 +159,7 @@ def make_rand_mod_signal(
         if draws is not None:
             pick = torch.tensor(draws["shape"], dtype=torch.int64).reshape(-1).to(dev)
         else:
-            pick = torch.randint(0, len(shapes), (batch_size,), generator=generator).to(dev)
+            pick = torch.randint(0, len(shapes), (batch_size * n_shards,), generator=generator)[rows].to(dev)
         shape_idx = pool[pick]
 
     return make_mod_signal_batch(n_samples, sr, freq, phase, shape_idx)

@@ -308,14 +308,15 @@ def _forward_launch(name, seq, xres, h0, c0, w_ih, w_hh, b, fc_k, fc_b, save_sta
         cs = torch.empty_like(hs)
         gates = torch.empty(bsz, t, 4 * hid, dtype=torch.float32, device=dev)
     LAUNCHES[name] += 1
-    _check(
-        lib.lstm_forward(
-            *(a.data_ptr() for a in args), y.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            _ptr(hs), _ptr(cs), _ptr(gates), bsz, t, hid, in_dim, out_ch, int(kernel == "registers"),
-            n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        name,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the card of its tensors
+        _check(
+            lib.lstm_forward(
+                *(a.data_ptr() for a in args), y.data_ptr(), hn.data_ptr(), cn.data_ptr(),
+                _ptr(hs), _ptr(cs), _ptr(gates), bsz, t, hid, in_dim, out_ch, int(kernel == "registers"),
+                n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            name,
+        )
     return (y, hn, cn, hs, cs, gates) if save_states else (y, hn, cn)
 
 
@@ -412,15 +413,16 @@ def _backward_launch(seq, hs, cs, gates, h0, c0, w_ih, w_hh, dh_in, dhn, dcn, pl
     dh0 = torch.empty(bsz, hid, **f32)
     dc0 = torch.empty_like(dh0)
     LAUNCHES["lstm_backward"] += 1
-    _check(
-        lib.lstm_backward(
-            *(a.data_ptr() for a in args), dgates.data_ptr(), _ptr(w_hh_t), partial.data_ptr(),
-            dwcat.data_ptr(), dseq.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            bsz, t, hid, in_dim, n_slices, rows_per_slice, int(kernel == "registers"),
-            n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "lstm_backward",
-    )
+    with torch.cuda.device(dev):
+        _check(
+            lib.lstm_backward(
+                *(a.data_ptr() for a in args), dgates.data_ptr(), _ptr(w_hh_t), partial.data_ptr(),
+                dwcat.data_ptr(), dseq.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                bsz, t, hid, in_dim, n_slices, rows_per_slice, int(kernel == "registers"),
+                n if kernel == "cluster" else 0, rows, torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            "lstm_backward",
+        )
     return (dseq, dh0, dc0, dwcat[hid : hid + in_dim], dwcat[:hid], dwcat[hid + in_dim],
             dgates.view(bsz, t, 4 * hid))
 

@@ -28,10 +28,12 @@ from mod_extraction_tpu_torch.paths import ensure_dir
 
 
 class CheckpointManager:
-    """`save_last` / `maybe_save_best` / `restore` under `ckpt_dir`."""
+    """`save_last` / `maybe_save_best` / `restore` under `ckpt_dir`, made at
+    the first save (under data parallelism only rank 0 saves; every rank
+    restores)."""
 
     def __init__(self, ckpt_dir: str) -> None:
-        self.ckpt_dir = ensure_dir(os.path.abspath(ckpt_dir))
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.meta_path = os.path.join(self.ckpt_dir, "meta.json")
         self.best_val = float("inf")
         if os.path.isfile(self.meta_path):
@@ -46,7 +48,7 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, f"{name}.pt")
 
     def _save(self, name: str, task, step: int, meta: dict) -> None:
-        path = os.path.join(self.ckpt_dir, f"{name}.pt")
+        path = os.path.join(ensure_dir(self.ckpt_dir), f"{name}.pt")
         tmp = f"{path}.tmp"
         torch.save({"task": task.state_dict(), "step": step}, tmp)
         os.replace(tmp, path)

@@ -22,6 +22,7 @@ import torch
 from mod_extraction_tpu_torch.losses.losses import WeightedLossDict
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.ops.corners import smoothen, stretch_corners
+from mod_extraction_tpu_torch.parallel.dist import all_reduce_grads, rank_sum, reduce_metrics, world
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
@@ -163,10 +164,11 @@ class LFOExtractionTask(TrainableTask):
         """(mod_hat (B, F), the extractor's latent (B, C, F), None for the
         RandomLFO baseline)."""
         if self.is_random_lfo:
+            w = world()
             mod_hat = self.model(
                 self.mask_generator, wet.shape[0],
                 {"shape": fx["shape"], "phase": fx["phase"], "rate_hz": fx["rate_hz"]},
-                draws=lfo_draws, device=self.device,
+                draws=lfo_draws, device=self.device, shard=(w.rank, w.size),
             )
             return mod_hat[:, 0, :], None
         model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
@@ -194,7 +196,7 @@ class LFOExtractionTask(TrainableTask):
             dry, wet, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
         mod_hat, _ = self._extract(dry, wet, fx, mask_draws, lfo_draws)
         mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
-        return self.losses(mod_hat, mod_gt)
+        return self.losses(mod_hat, mod_gt, sum_over_ranks=rank_sum())
 
     def train_step(
         self,
@@ -204,7 +206,12 @@ class LFOExtractionTask(TrainableTask):
     ) -> Dict[str, torch.Tensor]:
         """One AdamW step.  `mask_draws` overrides the SpecAugment uniforms
         (tests feed the numbers JAX drew): four numbers, or with
-        `sub_batch_size` one row of four per sub-batch."""
+        `sub_batch_size` one row of four per sub-batch.
+
+        Under data parallelism (`parallel/dist.py`) `batch` is this rank's
+        rows: every rank draws the same SpecAugment numbers, the gradients
+        are averaged over the ranks before the update, and the metrics are
+        those of the global batch."""
         assert self.has_params, "the RandomLFO baseline has no parameters to train"
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
@@ -215,12 +222,22 @@ class LFOExtractionTask(TrainableTask):
                 mask_draws = torch.rand(4, generator=self.mask_generator)
             loss, metrics = self._loss(batch, corpus, mask_draws)
             loss.backward()
+        all_reduce_grads(self.model.parameters())
         self._update()
-        return {k: v.detach() for k, v in metrics.items()}
+        return reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     def _backward_subbatched(self, batch, corpus, mask_draws):
         """Gradients (left in `.grad`) and metrics averaged over the
-        sub-batches, each with its own SpecAugment draws."""
+        sub-batches, each with its own SpecAugment draws.
+
+        Not under data parallelism: JAX shards each global sub-batch over
+        the devices, while a rank holds a contiguous block of the global
+        batch, whose sub-batches would take other rows with each draw."""
+        if world().size > 1:
+            raise NotImplementedError(
+                "sub_batch_size under data parallelism (a world of "
+                f"{world().size}): a rank's rows are not JAX's share of each sub-batch"
+            )
         sub = self.sub_batch_size
         b = _batch_size(batch)
         assert b % sub == 0 and b >= sub
@@ -264,4 +281,4 @@ class LFOExtractionTask(TrainableTask):
         if self.has_params:
             self.model.eval()
         _, metrics = self._loss(batch, corpus, None, lfo_draws)
-        return metrics
+        return reduce_metrics(metrics)

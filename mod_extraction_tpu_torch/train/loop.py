@@ -1,5 +1,5 @@
 """Training/validation loop (the port's copy of
-`mod_extraction_tpu/train/loop.py`, on one device).
+`mod_extraction_tpu/train/loop.py`).
 
 The epoch loop runs over the host loader; batches reach the card through
 pinned host memory and a side CUDA stream, one or two ahead of the step
@@ -7,6 +7,13 @@ that reads them.  Metrics are averaged over the epoch, `last` and
 best-by-val-loss checkpoints are kept, and every log line goes to a JSONL
 file, the console and (when the `tensorboard` package is there) TensorBoard,
 with the step's `audio_sec_per_sec` and `lr`.
+
+Under data parallelism (`parallel/dist.py`, a process group of one rank a
+card) every rank iterates the same seeded epoch and keeps its block of each
+batch's rows, the device corpus goes whole to every rank's card, and the
+tasks return the global batch's metrics.  Only rank 0 writes metrics,
+checkpoints, profiles and media; every rank restores the same checkpoint,
+and the ranks meet at a barrier after each epoch's checkpoint.
 """
 
 from __future__ import annotations
@@ -23,6 +30,13 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from mod_extraction_tpu_torch.parallel.dist import (
+    barrier,
+    check_replicated,
+    put_replicated,
+    shard_batch,
+    world,
+)
 from mod_extraction_tpu_torch.paths import ensure_dir
 from mod_extraction_tpu_torch.train.checkpoints import CheckpointManager
 
@@ -66,7 +80,8 @@ class MetricLogger:
     console with one warning (the JSONL file is the record either way)."""
 
     def __init__(self, out_dir: str, run_name: str, tensorboard: bool = True) -> None:
-        self.path = os.path.join(ensure_dir(out_dir), f"{run_name}_metrics.jsonl")
+        self.out_dir = out_dir
+        self.path = os.path.join(out_dir, f"{run_name}_metrics.jsonl")
         self._tb = None
         self._tb_dir = os.path.join(out_dir, f"{run_name}_tb")
         self._tb_wanted = tensorboard
@@ -104,6 +119,7 @@ class MetricLogger:
             self._tb = None
 
     def log(self, payload: Dict[str, Any]) -> None:
+        ensure_dir(self.out_dir)
         with open(self.path, "a") as f:
             f.write(json.dumps(payload) + "\n")
         self._log_tb(payload)
@@ -128,7 +144,12 @@ class Trainer:
     log line and the wait for the next batch.  The window goes to
     `profile_dir` as a Chrome trace and as `<run_name>_profile.json`, and its
     wall time, device-busy time and idle share to the metric log; the time
-    spent closing it is left out of the logged step times."""
+    spent closing it is left out of the logged step times.
+
+    `media_callback(trainer, batch, epoch)` (`utils/plotting.py`) gets val
+    batch 0 on rank 0 in every `media_every_n_epochs`-th epoch (epoch 0
+    included); under data parallelism that batch is rank 0's rows, the
+    first of the global batch."""
 
     def __init__(
         self,
@@ -137,6 +158,8 @@ class Trainer:
         max_epochs: int = 400,
         out_dir: str = "out",
         run_name: str = "run",
+        media_callback: Optional[Callable] = None,
+        media_every_n_epochs: int = 10,
         log_every_n_steps: int = 50,
         resume: bool = False,
         lr=None,  # float, or a function of the global step (display only)
@@ -149,15 +172,19 @@ class Trainer:
         self.task = task
         self.dm = data_module
         self.device = task.device
+        self.world = world()
+        self.is_chief = self.world.rank == 0  # the rank that writes
         self.max_epochs = max_epochs
         self.run_name = run_name
-        self.out_dir = ensure_dir(out_dir)
+        self.out_dir = out_dir
         self.metrics = MetricLogger(out_dir, run_name)
         self.ckpts = CheckpointManager(os.path.join(out_dir, run_name + "_ckpts"))
+        self.media_callback = media_callback
+        self.media_every_n_epochs = max(1, int(media_every_n_epochs))
         self.log_every_n_steps = log_every_n_steps
         self.resume = resume
         self.lr = lr
-        self.profile_dir = profile_dir
+        self.profile_dir = profile_dir if self.is_chief else None
         self.profile_steps = tuple(profile_steps)
         self._profiler = None
         self._profile_t0 = 0.0
@@ -172,11 +199,11 @@ class Trainer:
         passed to every step."""
         payload = getattr(self.dm, "corpus_payload", lambda: None)()
         if payload is not None:
-            self.corpus = torch.from_numpy(payload).to(self.device)
+            self.corpus = put_replicated(payload, self.device)
 
     def _host_batches(self, loader, epoch: int, pin: bool, depth: int = 2):
-        """The loader's epoch as CPU tensor batches, made (and pinned) on a
-        side thread up to `depth` batches ahead."""
+        """The loader's epoch as CPU tensor batches (this rank's rows), made
+        (and pinned) on a side thread up to `depth` batches ahead."""
         q: queue.Queue = queue.Queue(maxsize=depth)
         err: list = []
         stop = threading.Event()  # set when the consumer abandons the epoch
@@ -194,9 +221,10 @@ class Trainer:
             return False
 
         def worker():
+            rank, size, _ = self.world
             try:
                 for b in loader.epoch(epoch):
-                    if stop.is_set() or not _put(host_batch_to_torch(b, pin)):
+                    if stop.is_set() or not _put(host_batch_to_torch(shard_batch(b, rank, size), pin)):
                         return
             except BaseException as e:  # surfaced on the consumer side
                 err.append(e)
@@ -279,6 +307,10 @@ class Trainer:
             log.info("Warm-started params (fresh optimizer state)")
         return 0, 0
 
+    def _log(self, payload: Dict[str, Any]) -> None:
+        if self.is_chief:
+            self.metrics.log(payload)
+
     def _maybe_profile(self, global_step: int) -> float:
         """Opens the profiler before the first iteration of the window and
         closes it before the first one past it; returns the seconds spent
@@ -322,7 +354,7 @@ class Trainer:
             "loader_wait_ms": host.get("trainer.loader_wait", 0.0),
             "batch_copy_ms": host.get("trainer.batch_copy", 0.0),
         }
-        self.metrics.log(summary)
+        self._log(summary)
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
         summary["top_device_ms"] = [[e.key, e.self_device_time_total / 1e3, e.count] for e in top]
         out = ensure_dir(self.profile_dir)
@@ -339,6 +371,7 @@ class Trainer:
         self.dm.setup("fit")
         self._attach_corpus()
         start_epoch, global_step = self._restore_or_warm_start()
+        check_replicated(self.task.trained_model.parameters())
 
         train_loader = self.dm.train_loader()
         val_loader = self.dm.val_loader()
@@ -381,7 +414,7 @@ class Trainer:
                     }
                     if self.lr is not None:
                         payload["lr"] = self.lr(global_step) if callable(self.lr) else self.lr
-                    self.metrics.log(payload)
+                    self._log(payload)
                     t_step = time.time()
             self._stop_profile()  # an epoch shorter than the trace window
 
@@ -394,7 +427,7 @@ class Trainer:
             }
             payload.update({f"train/{k}": v for k, v in _mean_metrics(train_acc).items()})
             payload.update({f"val/{k}": v for k, v in val_metrics.items()})
-            self.metrics.log(payload)
+            self._log(payload)
 
             if self.check_finite:
                 # never checkpoint NaN params (the in-epoch check only fires
@@ -402,9 +435,11 @@ class Trainer:
                 bad = {k: v for k, v in payload.items() if isinstance(v, float) and not np.isfinite(v)}
                 if bad:
                     raise FloatingPointError(f"non-finite epoch metrics at epoch {epoch}: {bad}")
-            self.ckpts.save_last(self.task, epoch, global_step)
-            if "loss" in val_metrics:
-                self.ckpts.maybe_save_best(self.task, val_metrics["loss"], epoch, global_step)
+            if self.is_chief:
+                self.ckpts.save_last(self.task, epoch, global_step)
+                if "loss" in val_metrics:
+                    self.ckpts.maybe_save_best(self.task, val_metrics["loss"], epoch, global_step)
+            barrier()  # no rank runs ahead of (or resumes before) the checkpoint
         self.metrics.close()
         return self.task
 
@@ -413,5 +448,10 @@ class Trainer:
             self.dm.setup("validate")
             self._attach_corpus()
             val_loader = self.dm.val_loader()
-        acc = [self.task.val_step(b, self.corpus) for b in self._device_batches(val_loader, epoch)]
+        acc = []
+        for i, b in enumerate(self._device_batches(val_loader, epoch)):
+            acc.append(self.task.val_step(b, self.corpus))
+            if (i == 0 and self.media_callback is not None and self.is_chief
+                    and epoch % self.media_every_n_epochs == 0):
+                self.media_callback(self, b, epoch)
         return _mean_metrics(acc)

@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from mod_extraction_tpu_torch.losses.losses import WeightedLossDict
+from mod_extraction_tpu_torch.losses.losses import BatchWeights, WeightedLossDict
 from mod_extraction_tpu_torch.models.lstm import (
     LSTMEffectModel,
     detach_state,
@@ -34,6 +34,13 @@ from mod_extraction_tpu_torch.ops.corners import (
     find_valid_mod_sig_mask,
     smoothen,
     stretch_corners,
+)
+from mod_extraction_tpu_torch.parallel.dist import (
+    all_reduce_grads,
+    all_reduce_mean,
+    rank_sum,
+    reduce_metrics,
+    world,
 )
 from mod_extraction_tpu_torch.train.lfo_task import (
     OptimizerFactory,
@@ -48,6 +55,12 @@ from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
 
 # the TBPTT variants not ported yet
 VARIANTS_QUEUED = "the TBPTT variants are queued in ROADMAP.md, queue 1 item 3"
+
+
+def _global_weights(weights: torch.Tensor) -> BatchWeights:
+    """The batch's validity weights with the ranks' mean weight sum: one
+    all-reduce a batch serves every weighted loss of its chunks."""
+    return BatchWeights(weights, all_reduce_mean(weights.sum()))
 
 
 class TBPTTEffectModelingTask(TrainableTask):
@@ -154,8 +167,10 @@ class TBPTTEffectModelingTask(TrainableTask):
         if self.lfo_model is None:
             return mod_frames
         if self.is_random_lfo:
+            w = world()
             return self.lfo_model(
-                self.lfo_generator, wet.shape[0], fx, draws=lfo_draws, device=self.device
+                self.lfo_generator, wet.shape[0], fx, draws=lfo_draws, device=self.device,
+                shard=(w.rank, w.size),
             )[:, 0, :]
         model_in = torch.cat([dry, wet], dim=1) if self.use_dry else wet
         return self.lfo_model(model_in)[0][:, 0, :].to(torch.float32)
@@ -199,10 +214,17 @@ class TBPTTEffectModelingTask(TrainableTask):
         """One batch: a no-gradient warm-up, then one AdamW update per
         chunk with the hidden state detached between chunks.  The metrics
         compare the chunks' outputs (each from the weights before its
-        update) with the wet audio, warm-up excluded."""
+        update) with the wet audio, warm-up excluded.
+
+        Under data parallelism (`parallel/dist.py`) `batch` is this rank's
+        rows: each chunk's gradients are averaged over the ranks before its
+        update, the weighted losses divide by the global weight sum (summed
+        over the ranks once a batch), and the metrics are those of the
+        global batch."""
         em = self.effect_model
         em.train()
         dry, wet, mod_sr, _, weights = self._prepare(batch, corpus, lfo_draws)
+        bw, ranks = _global_weights(weights), rank_sum()
         w, s = self.warmup_n_samples, self.step_n_samples
         n_chunks = (dry.shape[-1] - w) // s
         with torch.no_grad():
@@ -213,15 +235,16 @@ class TBPTTEffectModelingTask(TrainableTask):
             a, e = w + i * s, w + (i + 1) * s
             self.optimizer.zero_grad(set_to_none=True)
             y, new_hidden = em(dry[:, :, a:e], mod_sr[:, :, a:e], hidden)
-            loss, _ = self.losses(y, wet[:, :, a:e], weights)
+            loss, _ = self.losses(y, wet[:, :, a:e], bw, ranks)
             loss.backward()
+            all_reduce_grads(em.parameters())
             self._update()
             hidden = detach_state(new_hidden)
             ys.append(y.detach())
         with torch.no_grad():
-            _, metrics = self.losses(torch.cat(ys, dim=-1), wet[:, :, w : w + n_chunks * s], weights)
+            _, metrics = self.losses(torch.cat(ys, dim=-1), wet[:, :, w : w + n_chunks * s], bw, ranks)
         metrics["valid_fraction"] = weights.mean()
-        return {k: v.detach() for k, v in metrics.items()}
+        return reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     @torch.no_grad()
     def val_step(
@@ -236,6 +259,6 @@ class TBPTTEffectModelingTask(TrainableTask):
         end = w + (dry.shape[-1] - w) // s * s
         h0 = lstm_init_state(dry.shape[0], em.n_hidden, self.device)
         wet_hat, _ = em(dry[:, :, :end], mod_sr[:, :, :end], h0)
-        _, metrics = self.losses(wet_hat[:, :, w:], wet[:, :, w:end], weights)
+        _, metrics = self.losses(wet_hat[:, :, w:], wet[:, :, w:end], _global_weights(weights), rank_sum())
         metrics["valid_fraction"] = weights.mean()
-        return metrics
+        return reduce_metrics(metrics)

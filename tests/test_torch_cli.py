@@ -11,6 +11,7 @@ import glob
 import inspect
 import math
 import os
+import sys
 
 import numpy as np
 import optax
@@ -233,15 +234,27 @@ DEFERRED = {
                            "queue 1 item 3"),
     "stretch_smooth": (lambda: _set(_tbptt_cfg(), ("model", "init_args", "stretch_smooth_n_frames"), 4),
                        "queue 1 item 3"),
-    "log_media": (lambda: _set(_lfo_cfg(), ("custom", "log_media"), True), "queue 1"),
+    # ported since: it raises only where matplotlib is missing, naming it
+    "log_media": (lambda: _set(_lfo_cfg(), ("custom", "log_media"), True), "matplotlib"),
     "pt_weights": (lambda: _set(_tbptt_cfg(), ("model", "init_args", "lfo_model_weights_path"), "models/x.pt"),
                    "not queued"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DEFERRED))
-def test_deferred_knobs_raise(name):
+def test_deferred_knobs_raise(name, monkeypatch):
     make, queue_item = DEFERRED[name]
+    if name == "log_media":
+        import mod_extraction_tpu_torch.utils as utils
+
+        run = tcli.RunConfig(make(), device="cpu")
+        assert tcli._media_callback_for(run) is not None
+        monkeypatch.delitem(sys.modules, "mod_extraction_tpu_torch.utils.plotting", raising=False)
+        monkeypatch.delattr(utils, "plotting", raising=False)
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match=queue_item):
+            tcli._media_callback_for(run)
+        return
     with pytest.raises(NotImplementedError, match=queue_item):
         tcli.RunConfig(make(), device="cpu")
 

@@ -48,10 +48,13 @@ PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.
                 "scripts/bench_torch_streaming.py", "scripts/train_torch.py", "scripts/validate_torch.py",
                 "scripts/extract_torch_weights.py", "scripts/validate_ckpt_torch.py",
                 "scripts/run_eval_grid_torch.py", "scripts/make_sim_effect_data_torch.py",
-                "scripts/make_sim_chorus_gt_control_torch.py")
+                "scripts/make_sim_chorus_gt_control_torch.py", "scripts/resample_torch.py",
+                "scripts/fit_ddp_torch.py")
 # the training entry point's modules (config/CLI, data pipeline, Trainer)
 ENTRY_MODULES = ("cli", "native", "train.loop", "data.wav", "data.datasets", "data.loader",
                  "data.corpus", "data.modules", "evaluation.tables")
+# data parallelism, the media hooks and the resampler
+DP_MEDIA_RESAMPLE_MODULES = ("parallel.dist", "parallel.dryrun", "utils.plotting", "ops.resample")
 
 
 def test_no_jax_imports_in_package_or_chip_smoke():
@@ -59,7 +62,7 @@ def test_no_jax_imports_in_package_or_chip_smoke():
     assert len(files) > 15
     for new in ("export/streaming.py", "paths.py", "train/checkpoints.py", "utils/timing.py"):
         assert PKG / new in files
-    for new in ENTRY_MODULES:
+    for new in ENTRY_MODULES + DP_MEDIA_RESAMPLE_MODULES:
         assert PKG / (new.replace(".", "/") + ".py") in files
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -81,7 +84,7 @@ def test_package_imports_with_jax_blocked():
     ]
     assert "mod_extraction_tpu_torch.train.lfo_task" in mods
     for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo", "export.streaming", "paths",
-                "train.checkpoints", "utils.timing") + ENTRY_MODULES:
+                "train.checkpoints", "utils.timing") + ENTRY_MODULES + DP_MEDIA_RESAMPLE_MODULES:
         assert f"mod_extraction_tpu_torch.{new}" in mods
     scripts = [str(ROOT / f) for f in PORT_SCRIPTS if f != "chip_smoke.py"]
     code = (
@@ -98,6 +101,31 @@ def test_package_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_training_eval_and_chip_smoke_do_not_import_matplotlib():
+    """matplotlib is imported only for `custom.log_media`: the CLI, the
+    Trainer, the eval path, the training scripts and `chip_smoke.py` import
+    without it (the GPU machine has none)."""
+    scripts = [str(ROOT / f) for f in ("chip_smoke.py", "scripts/train_torch.py", "scripts/validate_torch.py",
+                                        "scripts/run_eval_grid_torch.py", "scripts/validate_ckpt_torch.py",
+                                        "scripts/resample_torch.py")]
+    code = (
+        "import sys, importlib, importlib.util\n"
+        "sys.modules['matplotlib'] = None\n"
+        "for m in ('cli', 'train.loop', 'evaluation.tables', 'parallel.dist', 'parallel.dryrun', 'ops.resample'):\n"
+        "    importlib.import_module('mod_extraction_tpu_torch.' + m)\n"
+        f"for i, f in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "try:\n"
+        "    importlib.import_module('mod_extraction_tpu_torch.utils.plotting')\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
