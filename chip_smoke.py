@@ -61,8 +61,9 @@ points at full width:
   `scripts/make_sim_effect_data_torch.py` (K1, K2) and the ground-truth
   control corpora of `scripts/make_sim_chorus_gt_control_torch.py` (K1)
   written on the card, one written wet held against K1's plain version,
-  then `scripts/run_eval_grid_torch.py` on `eval_lfo.yml` (K2, the r7
-  extractor, 1000 examples at batch 125), `eval_lfo_flanger.yml` (K1),
+  then `scripts/run_eval_grid_torch.py` (each variant cut to two val
+  batches, one for the effect models) on `eval_lfo.yml` (K2, the r7
+  extractor at batch 125), `eval_lfo_flanger.yml` (K1),
   `eval_em_unseen_effect.yml` (the imported LSTM-64s' forward, K3),
   `--unseen-audio` (the five synthetic domains: K1, K2) and `--em-sim`
   (every sim effect's LSTM-64 and rand-baseline tables, the
@@ -81,7 +82,18 @@ points at full width:
   the same two halves (its loss also within 1e-5 of the full-batch step),
   the H 64 and H 160 TBPTT steps within the JAX oracle's tolerances of the
   full-batch step, every rank's launches those of a whole step; (c) the
-  resampler, card against CPU.
+  resampler, card against CPU;
+* `variants`, the TCN extractor and the TBPTT variants through
+  `cli.RunConfig` on shipped configs changed in memory: (a) the SpectralTCN
+  extractor (5 x 96 channels, kernel 13, dilations 1-16) as stage 1 on
+  interwoven batches of 32 (K1, K2); (b) a SpectralDSTCN param-model
+  latent (in_dim 4: K3, K4, K5 held against plain on the path's arguments,
+  dseq's latent rows included), (c) the r7 extractor unfrozen and trained
+  in every chunk, (d) `stretch_smooth_n_frames: 4`, each on
+  configs/train_em_sim_flanger_r7.yml's task over dry/wet flanger pairs of
+  32 (the wet through K1); (e) `train_steps` bit for bit two `train_step`s.
+  (a)-(d) are also held against the CPU (batch 2 of 0.5 s clips, float32
+  convs), the CPU side in spawned processes once the card's paths are timed.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -966,7 +978,9 @@ def path_lstm_args(lk, task, val_batch) -> tuple:
     end = warm + task.updates_per_batch * chunk
     b = dry.shape[0]
     h0, c0 = lstm_init_state(b, em.n_hidden, "cuda")
-    seq_full = torch.cat([mod_sr[:, :, :end], dry[:, :, :end]], 1).contiguous()
+    with torch.no_grad():  # the LFO, and a param model's latent after it
+        latent = task._latent(mod_sr[:, :, :end], wet)
+    seq_full = torch.cat([latent, dry[:, :, :end]], 1).contiguous()
     k3_args = (seq_full[:, :, :warm].contiguous(), dry[:, :, :warm].contiguous(),
                h0, c0, *w)  # the warm-up of every train step
     _, hw, cw = lk.lstm_forward(*k3_args)
@@ -1839,6 +1853,10 @@ def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows:
 # run as a user runs `scripts/run_eval_grid_torch.py out/eval <config> ...`
 EVAL_CONFIGS = ("eval_lfo.yml", "eval_lfo_flanger.yml", "eval_em_unseen_effect.yml")
 EVAL_CPU_CONFIG = "configs/eval_lfo.yml"  # held card vs CPU at one val batch
+# the phase's depth: val batches a variant, at most (the extractor configs;
+# the effect-model configs, one 86016-sample K3 walk a batch); every config,
+# archive and kernel stays
+EVAL_MAX_VAL_BATCHES = {"lfo": 2, "em": 1}
 
 
 def _val_batches(cfg: dict) -> int:
@@ -1847,6 +1865,18 @@ def _val_batches(cfg: dict) -> int:
     if n % bs:
         fail(f"eval: {n} val examples do not fill batches of {bs}")
     return n // bs
+
+
+def _cut_val(cfg: dict) -> dict:
+    """`cfg` with its val examples cut to `EVAL_MAX_VAL_BATCHES` batches."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    args = cfg["data"]["init_args"]
+    kind = "em" if "effect_model" in cfg["model"]["init_args"] else "lfo"
+    args["val_num_examples_per_epoch"] = min(args["val_num_examples_per_epoch"],
+                                             EVAL_MAX_VAL_BATCHES[kind] * args["batch_size"])
+    return cfg
 
 
 def check_sim_render(fxk, sim) -> float:
@@ -1966,7 +1996,9 @@ def run_eval(fxk, lk, rows: list) -> dict:
 
         def counted_validate_many(variants):
             """`cli.validate_many` on the card, its K3 launches at H 160 set
-            apart and its val batches counted against the launches."""
+            apart and its val batches counted against the launches; each
+            variant cut to `EVAL_MAX_VAL_BATCHES`."""
+            variants = [(label, _cut_val(c)) for label, c in variants]
             before = dict(lk.LAUNCHES), dict(fxk.LAUNCHES)
             out = cli.validate_many(variants, device="cuda")
             torch.cuda.synchronize()
@@ -2523,6 +2555,367 @@ def run_ddp(rows: list) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# variants: the TCN extractor's stage 1 and the TBPTT variants (param model
+# latent, unfrozen extractor, stretch smoothing, train_steps): K1-K5 on new
+# paths, K3/K4/K5 at in_dim 4
+# ---------------------------------------------------------------------------
+
+SPECTRAL_TCN_CONFIG = "configs/models/spectral_tcn.yml"
+N_VARIANT_TCN_STEPS = 3
+N_VARIANT_TBPTT_STEPS = 2
+# the card-vs-CPU comparisons: batch 2 of 0.5 s clips (the CPU's plain LSTM
+# walks a sample at a time: a 2 s TBPTT step takes it about a minute),
+# run in spawned CPU processes beside the card's runs of the same size
+VARIANT_CPU_BATCH = 2
+VARIANT_CPU_SAMPLES = N_SAMPLES // 4
+VARIANT_CPU_THREADS = 2
+VARIANT_LOSS_TOL = (1e-6, 1e-4)  # atol, rtol: the TBPTT training loss (ROADMAP.md)
+# the trained extractor's part ("lfo." keys) card vs CPU: a max-pool window
+# whose two largest values lie within the two devices' float32 rounding
+# sends its cotangent elsewhere (the eq-mask backward), so its first update's
+# gradients read 1.7e-4 to 1.2e-3 of each tensor's max|g| over five batches
+# (H100 80GB HBM3, 700 W), and AdamW's first steps move a weight by about
+# +-lr whatever |g|, so a flipped sign of a near-zero gradient reads 2 lr in
+# it: its gradients are held as the two-rank stage-1 step's
+# (DDP_GRAD_BOUND), its weights printed
+EXTRACTOR_PART = "lfo."
+# the stretch's own 4-frame smoothing takes 3 more of the r7 extractor's 345
+# frames: int(335 / 345 * 88200) = 85643 samples, 82 chunks after the warm-up
+STRETCH_UPDATES = 82
+
+
+def variant_config(name: str, n_samples: int = N_SAMPLES, cpu_check: bool = False) -> dict:
+    """A shipped config with one `variants` item's change, composed in
+    memory: "tcn" (configs/train_lfo_interwoven_all_live_r7.yml with
+    configs/models/spectral_tcn.yml as its model), and on
+    configs/train_em_sim_flanger_r7.yml "param" (a SpectralDSTCN at the JAX
+    defaults, the LSTM-64's latent_dim 3), "unfrozen" (`freeze_lfo_model:
+    false`) and "stretch" (`stretch_smooth_n_frames: 4`).  `cpu_check`: the
+    card-vs-CPU form: the extractor's convs in float32, the param-model and
+    stretch items on the ground-truth LFO (the subject there is the latent
+    and the stretch, not the extractor, whose corners could flip between
+    the two devices' roundings), and the unfrozen item keeping every
+    example (the r7 extractor's LFO of a 0.5 s clip fails the validity
+    rules, which would leave no gradient to compare)."""
+    from mod_extraction_tpu_torch import cli
+
+    if name == "tcn":
+        cfg = cli.load_yaml_with_includes(str(ROOT / FIT_LFO_CONFIG))
+        cfg["model"]["init_args"]["model"] = cli.load_yaml_with_includes(str(ROOT / SPECTRAL_TCN_CONFIG))
+        cfg["data"]["init_args"]["shared_args"]["n_samples"] = n_samples
+        return cfg
+    cfg = cli.load_yaml_with_includes(str(ROOT / FIT_TBPTT_CONFIG))
+    cfg["data"]["init_args"]["n_samples"] = n_samples
+    args = cfg["model"]["init_args"]
+    if name == "param":
+        args["param_model"] = {"class_path": "SpectralDSTCN", "init_args": {}}
+        args["effect_model"]["init_args"]["latent_dim"] = 3
+    elif name == "unfrozen":
+        args["freeze_lfo_model"] = False
+    elif name == "stretch":
+        args["stretch_smooth_n_frames"] = 4
+    else:
+        raise KeyError(name)
+    if cpu_check:
+        args["lfo_model"]["init_args"]["compute_dtype"] = "float32"
+        if name in ("param", "stretch"):
+            del args["lfo_model"], args["lfo_model_weights_path"]
+        else:
+            args["discard_invalid_lfos"] = False
+    return cfg
+
+
+def _variant_batch(name: str, seed: int, batch: int, n_samples: int, device: str) -> dict:
+    """A batch of `name`'s item on `device`: interwoven rows for the
+    extractor; for the TBPTT items the dry/wet pairs their config's data
+    module yields, the wet rendered here through K1 (the flanger at stage
+    2's delay line, as the fit phase writes its corpus), the ground-truth
+    LFO kept."""
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_interwoven_batch, make_synthetic_batch
+    from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
+
+    if name == "tcn":
+        return batch_to_torch(make_interwoven_batch(seed, batch, n_samples, SR), device)
+    b = batch_to_torch(make_synthetic_batch(seed, batch, n_samples, SR, "flanger"), device)
+    with torch.no_grad():
+        b["wet"] = render_batch(b, RenderConfig(sr=SR, n_samples=n_samples, effects=(2,), max_delay_samples=485))[1]
+    return b
+
+
+def variant_reference(name: str, device: str) -> dict:
+    """One `val_step` and one `train_step` of a `variants` item at the
+    card-vs-CPU size, on `device`: metrics, the first update's gradients and
+    the trained parameters after the step (numpy)."""
+    from mod_extraction_tpu_torch import cli
+
+    if device == "cpu":
+        torch.set_num_threads(VARIANT_CPU_THREADS)
+    task = cli.RunConfig(variant_config(name, VARIANT_CPU_SAMPLES, cpu_check=True), device).task
+    batch = _variant_batch(name, 4000, VARIANT_CPU_BATCH, VARIANT_CPU_SAMPLES, device)
+    val = {k: v.item() for k, v in task.val_step(batch).items()}
+    grads = {}
+    update = task._update
+
+    def first_update():
+        if not grads:
+            grads.update({k: p.grad.detach().float().cpu().numpy()
+                          for k, p in task.trained_model.named_parameters()})
+        update()
+
+    task._update = first_update
+    train = {k: v.item() for k, v in task.train_step(batch).items()}
+    params = {k: v.detach().float().cpu().numpy() for k, v in task.trained_model.state_dict().items()}
+    return dict(val=val, train=train, grads=grads, params=params)
+
+
+def check_variant_against_cpu(name: str, card: dict, cpu: dict, metric_tol: tuple) -> dict:
+    """The card's `variant_reference` against the CPU's: the val and train
+    losses (and a TBPTT step's valid fraction) within `metric_tol` (atol,
+    rtol), the first update's gradients within 5e-4 of each tensor's largest
+    |g|, the parameters after the step within PARAM_ATOL; a trained
+    extractor's part as `EXTRACTOR_PART` says.  Returns the worst of each.
+    (The zero-weight metrics esr and dc are printed only: a clip whose wet
+    is near silence divides by its energy plus 1e-8.)"""
+    atol, rtol = metric_tol
+    worst_m = 0.0
+    for what in ("val", "train"):
+        for k in ("loss", "valid_fraction"):
+            if k not in cpu[what]:
+                continue
+            a, b = card[what][k], cpu[what][k]
+            worst_m = max(worst_m, abs(a - b) / (atol + rtol * abs(b)))
+            if not abs(a - b) <= atol + rtol * abs(b):
+                fail(f"variants {name}: {what} {k} card {a} vs CPU {b} (atol {atol}, rtol {rtol})")
+
+    def grad_rel(k, g):
+        return float(np.abs(card["grads"][k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+
+    def param_abs(k, v):
+        return float(np.abs(card["params"][k] - v).max())
+
+    ext = {k for k in cpu["grads"] if k.startswith(EXTRACTOR_PART)}
+    g_err = max(grad_rel(k, g) for k, g in cpu["grads"].items() if k not in ext)
+    p_err = max(param_abs(k, v) for k, v in cpu["params"].items() if k not in ext)
+    g_ext = max((grad_rel(k, cpu["grads"][k]) for k in ext), default=0.0)
+    p_ext = max((param_abs(k, cpu["params"][k]) for k in ext), default=0.0)
+    shown = " ".join(f"{what}/{k}={card[what][k]:.8g}/{cpu[what][k]:.8g}"
+                     for what in ("val", "train") for k in sorted(cpu[what]))
+    print(f"[variants {name} card vs CPU, b={VARIANT_CPU_BATCH}, {VARIANT_CPU_SAMPLES} samples] {shown} "
+          f"(worst loss |d| / tolerance {worst_m:.3f}); first update's gradients max_rel={g_err:.3e} "
+          f"(tolerance {GRAD_REL}); parameters after the step max_abs={p_err:.3e} (tolerance {PARAM_ATOL})"
+          + (f"; the extractor's gradients max_rel={g_ext:.3e} (tolerance {DDP_GRAD_BOUND}), its parameters "
+             f"max_abs={p_ext:.3e} (printed)" if ext else ""))
+    if not g_err <= GRAD_REL:
+        fail(f"variants {name}: the first update's gradients, card vs CPU: {g_err}")
+    if not p_err <= PARAM_ATOL:
+        fail(f"variants {name}: parameters after a train step, card vs CPU: {p_err}")
+    if not g_ext <= DDP_GRAD_BOUND:
+        fail(f"variants {name}: the extractor's first-update gradients, card vs CPU: {g_ext}")
+    return dict(metric_over_tol=worst_m, grad_rel=g_err, param_abs=p_err, extractor_grad_rel=g_ext,
+                extractor_param_abs=p_ext)
+
+
+def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, val_want: dict) -> dict:
+    """A `val_step` and the train steps of one item on the card, the val
+    step's launches held to `val_want` and each train step's to `per_step`;
+    returns the launches, the mean step ms after the first, and the last
+    metrics."""
+    total = dict.fromkeys(per_step, 0)
+    _reset_launch_counts()
+    val = {k: v.item() for k, v in task.val_step(val_batch).items()}
+    got = _launch_counts()
+    if any(got[k] != v for k, v in val_want.items()):
+        fail(f"variants {name}: val_step launched {got}, expected {val_want}")
+    total = {k: total[k] + got[k] for k in total}
+    step_s, metrics = [], None
+    for i, tb in enumerate(train_batches):
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: v.item() for k, v in task.train_step(tb).items()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = _launch_counts()
+        if any(got[k] != v for k, v in per_step.items()):
+            fail(f"variants {name}: train_step {i} launched {got}, expected {per_step}")
+        total = {k: total[k] + got[k] for k in total}
+        if i > 0:
+            step_s.append(dt)
+        print(f"[variants {name} train_step {i}] loss={metrics['loss']:.6f} wall={dt * 1e3:.2f} ms")
+    if not all(math.isfinite(v) for v in (*val.values(), *metrics.values())):
+        fail(f"variants {name}: non-finite metrics: val {val}, train {metrics}")
+    if not all(torch.isfinite(p).all().item() for p in task.trained_model.parameters()):
+        fail(f"variants {name}: non-finite parameters after the train steps")
+    ms = float(np.mean(step_s)) * 1e3
+    print(f"[variants {name}] val loss={val['loss']:.6f} valid_fraction={val.get('valid_fraction', 1.0)} "
+          f"mean_step_ms={ms:.3f} (steps after the first) launches={total}")
+    return dict(launches=total, step_ms=ms, val=val, train=metrics)
+
+
+def check_in_dim4_kernels(lk, task, val_batch) -> dict:
+    """K3, K4 and K5 on the param-model path's own arguments (in_dim 4: the
+    audio, the LFO and the latent of 2), each against its plain version:
+    K3/K4 within 1e-4, K5 within 5e-4 of each output's largest magnitude,
+    dseq's latent rows (the param model's gradient) among them."""
+    k3_args, k4_args, k5_args, _ = path_lstm_args(lk, task, val_batch)
+    in_dim = k4_args[0].shape[1]
+    if in_dim != 4:
+        fail(f"variants param: the LSTM's input is {in_dim} wide, expected 4")
+    err3 = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(*k3_args), lk.lstm_forward_plain(*k3_args)))
+    err4 = max(max_abs(x, y) for x, y in zip(lk.lstm_train_forward(*k4_args),
+                                              lk.lstm_forward_plain(*k4_args, save_states=True)))
+    got5, want5 = lk.lstm_backward(*k5_args), lk.lstm_backward_plain(*k5_args)
+    err5 = max(rel_err(x, y) for x, y in zip(got5, want5))
+    err_lat = rel_err(got5[0][:, :3], want5[0][:, :3])
+    b, _, t = k4_args[0].shape
+    print(f"[variants param kernels, B={b} T={t} H={k4_args[5].shape[0]} in_dim={in_dim}, "
+          f"{lk.forward_kernel(64, b)[0]} / {lk.backward_kernel(64, b)[0]}] K3 max_abs={err3:.3e} "
+          f"K4 max_abs={err4:.3e} (tolerance {KERNEL_TOL}); K5 max_rel={err5:.3e}, dseq latent rows "
+          f"max_rel={err_lat:.3e} (tolerance {GRAD_REL})")
+    if not (err3 <= KERNEL_TOL and err4 <= KERNEL_TOL):
+        fail(f"variants param: K3/K4 at in_dim 4 disagree with their plain versions: {err3}, {err4}")
+    if not (err5 <= GRAD_REL and err_lat <= GRAD_REL):
+        fail(f"variants param: K5 at in_dim 4 disagrees with its plain version: {err5}, {err_lat}")
+    return dict(k3=err3, k4=err4, k5=err5, dseq_latent=err_lat)
+
+
+def run_variants(lk, rows: list) -> dict:
+    """The `variants` phase, through `cli.RunConfig` and the tasks:
+    (a) the SpectralTCN extractor's stage 1 (5 x 96, kernel 13, dilations
+    1-16, n_fft 1024, hop 256) on interwoven batches of 32: a `val_step` and
+    3 `train_step`s (K1, K2); (b) the param-model latent (SpectralDSTCN at
+    the JAX defaults, LSTM-64 with latent_dim 3) on the frozen r7 extractor,
+    dry/wet flanger pairs of 32 (the wet through K1), 83 chunks a step: a
+    `val_step` and 2 `train_step`s (K3, K4, K5 at in_dim 4) and the kernels
+    at the path's arguments; (c) the unfrozen r7 extractor, trained in
+    every chunk: a `val_step` and 2 `train_step`s, its weights moved; (d)
+    `stretch_smooth_n_frames: 4`: its updates a batch, a `val_step` and 2
+    `train_step`s; (e) `train_steps` over 2 batches bit for bit 2
+    `train_step`s.  Then (a)-(d) are each held against the CPU, the CPU
+    runs in spawned processes (`variant_reference`)."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    from mod_extraction_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def batches(name, n, seed=5000):
+        """n batches of 32 (the TBPTT items' wet through K1, counted)."""
+        _reset_launch_counts()
+        out_ = [_variant_batch(name, seed + s, BATCH, N_SAMPLES, "cuda") for s in range(n)]
+        add(_launch_counts())
+        return out_
+
+    def tbptt_step(n_up):
+        return dict(flanger=0, phaser=0, lstm_forward=1, lstm_train_forward=n_up, lstm_backward=n_up)
+
+    tbptt_val = dict(flanger=0, phaser=0, lstm_forward=1, lstm_train_forward=0, lstm_backward=0)
+
+    # (a) SpectralTCN, stage 1
+    task = cli.RunConfig(variant_config("tcn"), "cuda").task
+    m = task.model
+    print(f"[variants tcn] {type(m).__name__}: {len(m.tcn.blocks)} x {m.tcn.blocks[0].conv.out_channels} "
+          f"channels, kernel {m.tcn.kernel_size}, dilations {m.tcn.dilations}, n_fft {m.n_fft}, hop "
+          f"{m.hop_len}, {sum(p.numel() for p in m.parameters())} parameters, batch {BATCH}")
+    fx_once = dict(flanger=1, phaser=1)
+    r = _variant_steps("tcn", task, batches("tcn", 1, 6000)[0], batches("tcn", N_VARIANT_TCN_STEPS),
+                       fx_once, fx_once)
+    add(r["launches"])
+    out["tcn"] = r
+
+    # (b) the param-model latent
+    task = cli.RunConfig(variant_config("param"), "cuda").task
+    n_up = task.updates_per_batch
+    if n_up != 83:
+        fail(f"variants param: updates_per_batch is {n_up}, expected 83")
+    val_batch = batches("param", 1, 6000)[0]
+    r = _variant_steps("param", task, val_batch, batches("param", N_VARIANT_TBPTT_STEPS), tbptt_step(n_up),
+                       tbptt_val)
+    add(r["launches"])
+    r["kernels"] = check_in_dim4_kernels(lk, task, val_batch)
+    out["param"] = r
+
+    # (c) the unfrozen extractor
+    task = cli.RunConfig(variant_config("unfrozen"), "cuda").task
+    before = {k: v.clone() for k, v in task.lfo_model.state_dict().items()}
+    r = _variant_steps("unfrozen", task, batches("unfrozen", 1, 6000)[0],
+                       batches("unfrozen", N_VARIANT_TBPTT_STEPS), tbptt_step(task.updates_per_batch), tbptt_val)
+    add(r["launches"])
+    moved = max(float((v - before[k]).abs().max()) for k, v in task.lfo_model.state_dict().items())
+    print(f"[variants unfrozen] the extractor's largest weight change over the steps {moved:.3e}")
+    if not moved > 0:
+        fail("variants unfrozen: the extractor's weights did not move")
+    r["extractor_moved"] = moved
+    out["unfrozen"] = r
+
+    # (d) the stretch's own smoothing
+    task = cli.RunConfig(variant_config("stretch"), "cuda").task
+    if task.updates_per_batch != STRETCH_UPDATES:
+        fail(f"variants stretch: updates_per_batch {task.updates_per_batch}, expected {STRETCH_UPDATES}")
+    r = _variant_steps("stretch", task, batches("stretch", 1, 6000)[0], batches("stretch", 2),
+                       tbptt_step(STRETCH_UPDATES), tbptt_val)
+    add(r["launches"])
+    out["stretch"] = r
+
+    # (e) train_steps against train_step in turn, bit for bit
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tb = batches("param", 2)
+        many, single = (cli.RunConfig(variant_config("param"), "cuda").task for _ in range(2))
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        stacked = many.train_steps(tb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        add(_launch_counts())
+        _reset_launch_counts()
+        seq = [single.train_step(b) for b in tb]
+        add(_launch_counts())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    same = all(torch.equal(stacked[k], torch.stack([s[k] for s in seq])) for k in stacked) and all(
+        torch.equal(v, single.trained_model.state_dict()[k]) for k, v in many.trained_model.state_dict().items())
+    print(f"[variants train_steps] 2 batches in {dt * 1e3:.1f} ms, losses {stacked['loss'].tolist()}; "
+          f"bit for bit two train_step calls: {same}")
+    if not same:
+        fail("variants: train_steps differs from train_step called in turn")
+    out["train_steps"] = dict(ms=dt * 1e3, bit_for_bit=same)
+
+    # each item against the CPU at batch 2 of 0.5 s clips, the card's runs
+    # of the same size beside the CPU's (after the card's paths are timed)
+    t0 = time.perf_counter()
+    names = ("tcn", "param", "unfrozen", "stretch")
+    with ProcessPoolExecutor(len(names), mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {n: pool.submit(variant_reference, n, "cpu") for n in names}
+        for name in names:
+            tol = (0.0, VAL_RTOL) if name == "tcn" else VARIANT_LOSS_TOL
+            out[name]["cpu"] = check_variant_against_cpu(
+                name, variant_reference(name, "cuda"), cpu[name].result(), tol)
+    print(f"[variants] card-vs-CPU checks {time.perf_counter() - t0:.1f} s")
+
+    print(f"[variants] launches {launches}")
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"])
+        if key in launches and launches[key]:
+            row["launches"] += launches[key]
+            row["variants_launches"] = launches[key]
+        if row["name"].startswith("lstm_effect_model") and not row["name"].endswith("_h160"):
+            row["variants_in_dim4_err"] = out["param"]["kernels"]
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[variants total] {out['s']:.1f} s")
+    return out
+
+
 # the kernels line's rows -> the launch counters of their wrappers
 ROW_COUNTER = {
     "flanger_delay_line": "flanger", "phaser_allpass": "phaser", "conv_wgrad_tapcat": "conv_wgrad",
@@ -2599,6 +2992,7 @@ def main() -> int:
     print("[fits] " + json.dumps(fits))
     print("[eval] " + json.dumps(run_eval(fxk, lk, rows)))
     print("[ddp] " + json.dumps(run_ddp(rows)))
+    print("[variants] " + json.dumps(run_variants(lk, rows)))
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

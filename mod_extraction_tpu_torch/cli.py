@@ -29,9 +29,10 @@ Kept from the JAX package:
   `batch_size`, the global batch (`parallel/dist.py`).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
-the CPU.  What the port does not have yet raises `NotImplementedError`
-naming its place in ROADMAP.md's queue 1: the TCN extractors and the TBPTT
-variants.
+the CPU.  Every model and TBPTT variant of the JAX CLI builds here: the
+Spectral2DCNN and the TCN extractors (`SpectralTCN`, `SpectralDSTCN`), the
+LSTM effect model, the RandomLFO baseline, a `param_model` and an unfrozen
+extractor (`freeze_lfo_model: false`).
 """
 
 from __future__ import annotations
@@ -48,10 +49,15 @@ import yaml
 
 from mod_extraction_tpu_torch.data.modules import DATA_MODULE_REGISTRY
 from mod_extraction_tpu_torch.evaluation.tables import format_validate_table
-from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, flax_to_state_dict
+from mod_extraction_tpu_torch.models.convert import (
+    flax_lstm_to_state_dict,
+    flax_to_state_dict,
+    tcn_flax_to_state_dict,
+)
 from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
+from mod_extraction_tpu_torch.models.tcn import SpectralDSTCN, SpectralTCN
 from mod_extraction_tpu_torch.parallel.dist import check_replicated, process_group
 from mod_extraction_tpu_torch.paths import CONFIGS_DIR, ROOT_DIR, ensure_dir
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask, adamw
@@ -63,21 +69,15 @@ from mod_extraction_tpu_torch.utils.device import resolve_device
 log = logging.getLogger(__name__)
 
 
-def _queued_tcn(*args, **kwargs):
-    raise NotImplementedError(
-        "SpectralTCN / SpectralDSTCN (models/tcn.py) are queued in ROADMAP.md, queue 1 item 2"
-    )
-
-
 MODEL_REGISTRY = {
     "mod_extraction.models.Spectral2DCNN": Spectral2DCNN,
-    "mod_extraction.models.SpectralTCN": _queued_tcn,
-    "mod_extraction.models.SpectralDSTCN": _queued_tcn,
+    "mod_extraction.models.SpectralTCN": SpectralTCN,
+    "mod_extraction.models.SpectralDSTCN": SpectralDSTCN,
     "mod_extraction.models.LSTMEffectModel": LSTMEffectModel,
     "mod_extraction.models.RandomLFO": RandomLFO,
     "Spectral2DCNN": Spectral2DCNN,
-    "SpectralTCN": _queued_tcn,
-    "SpectralDSTCN": _queued_tcn,
+    "SpectralTCN": SpectralTCN,
+    "SpectralDSTCN": SpectralDSTCN,
     "LSTMEffectModel": LSTMEffectModel,
     "RandomLFO": RandomLFO,
 }
@@ -163,8 +163,8 @@ def _filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
 
 def build_model(cfg: Dict[str, Any], data_links: Dict[str, Any], seed: int = 0):
     """Instantiate a model from {class_path, init_args}, linking n_samples/sr
-    from the data config when the model accepts them; a Spectral2DCNN's
-    initial weights are drawn from `seed`."""
+    from the data config when the model accepts them; the initial weights
+    of a Spectral2DCNN or a TCN model are drawn from `seed`."""
     cls = MODEL_REGISTRY[cfg["class_path"]]
     args = dict(cfg.get("init_args") or {})
     for key in ("n_samples", "sr"):
@@ -175,7 +175,7 @@ def build_model(cfg: Dict[str, Any], data_links: Dict[str, Any], seed: int = 0):
             args[k] = tuple(args[k])
     if cls is RandomLFO and isinstance(args.get("shapes"), list):
         args["shapes"] = tuple(args["shapes"])
-    if cls is Spectral2DCNN:
+    if cls in (Spectral2DCNN, SpectralTCN, SpectralDSTCN):
         args.setdefault("seed", seed)
     if cls is LSTMEffectModel:
         args.setdefault("generator", torch.Generator().manual_seed(seed))
@@ -285,8 +285,8 @@ def build_optimizer(cfg: Optional[Dict[str, Any]]) -> Callable:
 
 
 def _load_lfo_weights(model, weights_path: str) -> Dict[str, torch.Tensor]:
-    """A bare-weights `.npz` as the state_dict of `model` (a Spectral2DCNN or
-    an LSTMEffectModel)."""
+    """A bare-weights `.npz` as the state_dict of `model` (a Spectral2DCNN, a
+    TCN model or an LSTMEffectModel)."""
     if weights_path.endswith(".pt"):
         raise NotImplementedError(
             f"{weights_path}: a .pt file is not read as bare weights. A checkpoint of the "
@@ -300,7 +300,14 @@ def _load_lfo_weights(model, weights_path: str) -> Dict[str, torch.Tensor]:
     path = _repo_path(weights_path)
     if isinstance(model, LSTMEffectModel):
         return flax_lstm_to_state_dict(path)
-    return flax_to_state_dict(path)
+    if isinstance(model, (SpectralTCN, SpectralDSTCN)):
+        return tcn_flax_to_state_dict(path)
+    if isinstance(model, Spectral2DCNN):
+        return flax_to_state_dict(path)
+    raise ValueError(
+        f"{weights_path}: a bare .npz holds one model; a TBPTT task that trains a param model "
+        "or its extractor restores from a checkpoint of the port (last.pt / best.pt)"
+    )
 
 
 def build_data_module(
@@ -388,6 +395,7 @@ class RunConfig:
             )
         if path in TASK_PATHS_TBPTT:
             param_cfg = args.pop("param_model", None)
+            # the task sets its n_samples to the cropped clip's, as JAX's does
             param_model = build_model(param_cfg, self.data_links, self.seed) if param_cfg else None
             effect_model = build_model(args.pop("effect_model"), self.data_links, self.seed)
             lfo_model = None
@@ -471,7 +479,11 @@ def _fit(config, out_dir, resume, max_epochs, device, sync_copies, profile_steps
     # models/*.npz export; a resumable `last` checkpoint wins
     warm_start = None
     init_wp = custom.get("init_weights_path")
-    if init_wp and isinstance(run.task, (LFOExtractionTask, TBPTTEffectModelingTask)):
+    if init_wp and getattr(run.task, "multi_params", False):
+        # as the JAX CLI: a bare export holds one model, and a TBPTT task that
+        # also trains a param model or its extractor resumes from checkpoints only
+        log.warning("custom.init_weights_path ignored: %s trains several parts", type(run.task).__name__)
+    elif init_wp and isinstance(run.task, (LFOExtractionTask, TBPTTEffectModelingTask)):
         # loaded only if no `last` checkpoint is resumed
         warm_start = lambda: _load_lfo_weights(run.task.trained_model, init_wp)  # noqa: E731
     # `custom.steps_per_dispatch` is accepted and has no effect: in the JAX

@@ -153,6 +153,13 @@ _LOSS_REGISTRY: Dict[str, LossFn] = {
 }
 
 
+def get_loss_func_by_name(name: str) -> LossFn:
+    """The registry's loss called `name`; `KeyError` for any other."""
+    if name not in _LOSS_REGISTRY:
+        raise KeyError(f"Unknown loss: {name}")
+    return _LOSS_REGISTRY[name]
+
+
 class WeightedLossDict:
     """Every named loss is computed and returned as a metric (zero-weight
     ones too); the total sums the positive-weight terms."""

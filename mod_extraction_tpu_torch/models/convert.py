@@ -1,5 +1,5 @@
-"""Flax-layout weights <-> the port's `Spectral2DCNN` and `LSTMEffectModel`
-state_dicts.
+"""Flax-layout weights <-> the port's `Spectral2DCNN`, `LSTMEffectModel` and
+TCN-family (`TCN`, `SpectralTCN`, `SpectralDSTCN`) state_dicts.
 
 Reads the shipped `.npz` files or a nested dict of numpy arrays from a live
 flax tree (`params` level optional).  Spectral2DCNN keys: `Conv_{i}/kernel`
@@ -8,9 +8,13 @@ flax tree (`params` level optional).  Spectral2DCNN keys: `Conv_{i}/kernel`
 (O, I) (the inverse direction of `mod_extraction_tpu/models/torch_port.py`).
 LSTM keys: `w_ih` (in_dim, 4H), `w_hh` (H, 4H), `b_gates` (4H,),
 `fc/kernel` (H, out), `fc/bias` (out,), kept in that layout.
-`spectral_2dcnn_state_dict_to_flax` and `lstm_state_dict_to_flax` map back,
-exactly: the weights a port-trained model hands on (`scripts/
-extract_torch_weights.py`) load in the JAX package.
+TCN keys follow the module tree: `[tcn/]block_{i}/conv/kernel` (K, I, O)
+<-> `[tcn.]blocks.{i}.conv.weight` (O, I, K), `.../res/kernel`,
+`.../act/alpha`, `.../film/adaptor/*`, `output/*`, `fc/*`, `fc_act/alpha`;
+FiLM's `batch_stats` (`.../film/bn/mean`, `var`) <-> the BN buffers.
+`spectral_2dcnn_state_dict_to_flax`, `lstm_state_dict_to_flax` and
+`tcn_state_dict_to_flax` map back, exactly: the weights a port-trained model
+hands on (`scripts/extract_torch_weights.py`) load in the JAX package.
 """
 
 from __future__ import annotations
@@ -100,6 +104,49 @@ def load_spectral_2dcnn(
     model = Spectral2DCNN(**model_kwargs)
     model.load_state_dict(flax_to_state_dict(weights))
     return model.to(device)
+
+
+_BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def tcn_flax_to_state_dict(weights: str | Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`.npz` path, flax param tree or flax variables ({"params", and
+    "batch_stats" when a FiLM has BN}) -> the state_dict of the TCN-family
+    module they belong to."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in _flat_weights(weights).items():
+        stats = key.startswith("batch_stats/")
+        *mods, leaf = key.removeprefix("batch_stats/").split("/")
+        mods = [f"blocks.{m[len('block_'):]}" if m.startswith("block_") else m for m in mods]
+        if stats:
+            leaf = _BN_LEAVES[leaf]
+        elif leaf == "kernel":  # conv (K, I, O) -> (O, I, K); dense (I, O) -> (O, I)
+            leaf, v = "weight", np.transpose(v, (2, 1, 0)) if v.ndim == 3 else v.T
+        sd[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(v))
+    return sd
+
+
+def tcn_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A TCN-family state_dict -> flax variables {"params": tree} (numpy,
+    float32), with "batch_stats" when it holds FiLM BN buffers; the inverse
+    of `tcn_flax_to_state_dict`."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        path = []
+        for m in mods:
+            if path and path[-1] == "blocks":
+                path[-1] = f"block_{m}"
+            else:
+                path.append(m)
+        v = _np(t)
+        coll = "params"
+        if leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf.removeprefix("running_")
+        elif leaf == "weight":
+            leaf, v = "kernel", np.transpose(v, (2, 1, 0)) if v.ndim == 3 else v.T
+        flat["/".join([coll, *path, leaf])] = np.ascontiguousarray(v)
+    return _nest(flat)
 
 
 _LSTM_KEYS = {

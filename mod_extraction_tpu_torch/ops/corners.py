@@ -175,6 +175,28 @@ def stretch_corners(
     return _stretch_one(mod_sig, top, bottom, max_n_corners)
 
 
+def corners_to_mod_sig(top_corners: torch.Tensor, bottom_corners: torch.Tensor) -> torch.Tensor:
+    """A piecewise-linear LFO rebuilt from (T,) corner masks: linear ramps
+    between consecutive corners (tops 1, bottoms 0), zeros before the first
+    and after the last corner, all zeros if either mask is empty."""
+    assert top_corners.ndim == 1
+    t = top_corners.shape[0]
+    iota = torch.arange(t, device=top_corners.device)
+    is_top = top_corners == 1
+    is_corner = is_top | (bottom_corners == 1)
+    targets = is_top.to(torch.float32)
+    prev_idx = torch.cummax(torch.where(is_corner, iota, -1), dim=0).values
+    next_idx = torch.cummin(torch.where(is_corner, iota, t).flip(0), dim=0).values.flip(0)
+    p = prev_idx.clamp(0, t - 1)
+    n = next_idx.clamp(0, t - 1)
+    frac = (iota - p).to(torch.float32) / (n - p).clamp(min=1).to(torch.float32)
+    ramp = targets[p] + (targets[n] - targets[p]) * frac
+    out = torch.where((prev_idx >= 0) & (next_idx < t), ramp, 0.0)
+    if top_corners.max() == 0 or bottom_corners.max() == 0:
+        return torch.zeros_like(out)
+    return out
+
+
 def _min_corner_spacing(mask: torch.Tensor) -> torch.Tensor:
     """(B,) minimum index distance between consecutive 1s of (B, T) masks,
     inf where a row has fewer than two."""

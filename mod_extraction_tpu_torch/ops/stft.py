@@ -1,6 +1,8 @@
-"""Mel frontend and SpecAugment (port of `mod_extraction_tpu/ops/stft.py`).
+"""Spectrogram and Mel frontends and SpecAugment (port of
+`mod_extraction_tpu/ops/stft.py`).
 
-torchaudio `MelSpectrogram(sr, n_fft, hop, n_mels, center=True)` defaults:
+torchaudio `Spectrogram(n_fft, hop)` and `MelSpectrogram(sr, n_fft, hop,
+n_mels, center=True)` defaults:
 periodic hann window, reflect padding of n_fft//2, power spectrum, HTK mel
 scale with unnormalised triangular filters, and a float32 projection onto
 the mels.
@@ -102,10 +104,34 @@ def _power_frames(frames: torch.Tensor, n_fft: int, impl: str) -> torch.Tensor:
 
 
 def _frame(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """Center-padded (reflect) framing: (B, C, T) -> (B, C, n_frames, n_fft)."""
+    """Center-padded (reflect) framing: (..., T) -> (..., n_frames, n_fft)."""
     pad = n_fft // 2
-    x = F.pad(x, (pad, pad), mode="reflect")
-    return x.unfold(-1, n_fft, hop)
+    lead = x.shape[:-1]
+    x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+    return x.reshape(*lead, x.shape[-1]).unfold(-1, n_fft, hop)
+
+
+def spectrogram(
+    x: torch.Tensor,
+    n_fft: int = 1024,
+    hop: int = 256,
+    power: float = 2.0,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Spectrogram `|X|**power`: (..., T) -> (..., n_freqs, n_frames), f32
+    (torchaudio `Spectrogram(n_fft, hop_length=hop)`: center, reflect,
+    hann, no normalisation).  Power 1 takes sqrt(max(|X|^2, 1e-30)), any
+    other power max(|X|^2, 1e-30) ** (power / 2), as the JAX function does."""
+    frames = _frame(x.to(torch.float32), n_fft, hop)
+    win = torch.as_tensor(hann_window(n_fft), device=x.device)
+    mag2 = _power_frames(frames * win, n_fft, impl)
+    if power == 2.0:
+        out = mag2
+    elif power == 1.0:
+        out = torch.sqrt(torch.clamp(mag2, min=1e-30))
+    else:
+        out = torch.pow(torch.clamp(mag2, min=1e-30), power / 2.0)
+    return out.transpose(-1, -2)
 
 
 def mel_spectrogram(
@@ -116,12 +142,17 @@ def mel_spectrogram(
     n_mels: int = 256,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Mel power spectrogram: (B, C, T) -> (B, C, n_mels, n_frames), f32."""
+    """Mel power spectrogram: (..., T) -> (..., n_mels, n_frames), f32."""
     frames = _frame(x.to(torch.float32), n_fft, hop)
     win = torch.as_tensor(hann_window(n_fft), device=x.device)
     mag2 = _power_frames(frames * win, n_fft, impl)  # (B, C, n_frames, n_freqs)
     fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=x.device)
     return torch.matmul(mag2, fb).transpose(-1, -2)
+
+
+def log_mel_spectrogram(x, sr=44100, n_fft=1024, hop=256, n_mels=256, eps=1e-7, impl="auto"):
+    """log(max(mel, eps)), the extractor's frontend."""
+    return torch.log(torch.clamp(mel_spectrogram(x, sr, n_fft, hop, n_mels, impl), min=eps))
 
 
 def spec_augment(

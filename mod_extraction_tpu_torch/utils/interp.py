@@ -23,3 +23,9 @@ def linear_interpolate_last_dim(x: torch.Tensor, n: int) -> torch.Tensor:
     x_lo = x.index_select(-1, torch.as_tensor(lo, device=x.device))
     x_hi = x.index_select(-1, torch.as_tensor(hi, device=x.device))
     return x_lo + (x_hi - x_lo) * frac.to(x.dtype)
+
+
+def linear_resample(x: torch.Tensor, n: int) -> torch.Tensor:
+    """`linear_interpolate_last_dim` (align_corners=True), the reference's
+    default resampling."""
+    return linear_interpolate_last_dim(x, n)

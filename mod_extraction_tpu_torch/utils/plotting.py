@@ -186,7 +186,7 @@ def em_media_callback(max_examples: int = 4, save_audio: bool = True):
         try:
             dry, wet, mod_sr, _, _ = task._prepare(batch, trainer.corpus)
             h0 = lstm_init_state(dry.shape[0], em.n_hidden, task.device)
-            wet_hat, _ = em(dry, mod_sr, h0)
+            wet_hat, _ = em(dry, task._latent(mod_sr, wet), h0)
         finally:
             task.generator.set_state(state)
         dry, wet, wet_hat = _numpy(dry), _numpy(wet), _numpy(wet_hat)

@@ -11,8 +11,11 @@ best.pt` or `last.pt`), or that checkpoint directory (its `best.pt`).  The
 `custom.init_weights_path`, `ckpt_path` and `scripts/export_torch_models.py`
 of either package read it.  `attribute` selects the model:
 `model` (default: the trained model, the extractor of an LFO run or the
-effect model of a TBPTT run), `effect_model` (the same) or `lfo_model` (the
-frozen extractor a TBPTT run conditions on).
+effect model of a TBPTT run), `effect_model` (the same), `lfo_model` (the
+extractor a TBPTT run conditions on, frozen or trained with it) or
+`param_model` (the SpectralDSTCN clip latent of a TBPTT run with one).
+Spectral2DCNN, SpectralTCN / SpectralDSTCN and LSTM weights are told apart
+by their keys.
 """
 
 import os
@@ -40,25 +43,37 @@ def extract(ckpt: str, attribute: str = "model") -> dict:
     from mod_extraction_tpu_torch.models.convert import (
         lstm_state_dict_to_flax,
         spectral_2dcnn_state_dict_to_flax,
+        tcn_state_dict_to_flax,
     )
 
     if attribute not in ATTRIBUTES:
         raise SystemExit(f"unknown attribute: {attribute} (one of {', '.join(ATTRIBUTES)})")
-    if attribute == "param_model":
-        raise NotImplementedError(
-            "param_model: the TBPTT variants (the param_model latent) are queued in "
-            "ROADMAP.md, queue 1 item 3"
-        )
     path = checkpoint_file(ckpt)
     task = torch.load(path, map_location="cpu", weights_only=False)["task"]
+    model = task["model"]
+    # a TBPTT task that trains several parts keeps them as {effect, param?, lfo?}
+    parts = {}
+    if any(k.startswith("effect.") for k in model):
+        for key, v in model.items():
+            part, _, rest = key.partition(".")
+            parts.setdefault(part, {})[rest] = v
     if attribute == "lfo_model":
-        if "lfo_model" not in task:
-            raise SystemExit(f"{path} holds no frozen extractor (lfo_model): not a TBPTT run on one")
-        sd = task["lfo_model"]
+        if "lfo_model" in task:
+            sd = task["lfo_model"]
+        elif "lfo" in parts:
+            sd = parts["lfo"]
+        else:
+            raise SystemExit(f"{path} holds no frozen extractor (lfo_model) and trains none: not a TBPTT run on one")
+    elif attribute == "param_model":
+        if "param" not in parts:
+            raise SystemExit(f"{path} holds no param_model: not a TBPTT run with one")
+        sd = parts["param"]
     else:
-        sd = task["model"]
+        sd = parts.get("effect", model)
     if "w_hh" in sd:
         return lstm_state_dict_to_flax(sd)
+    if any(k.startswith("tcn.") for k in sd):
+        return tcn_state_dict_to_flax(sd)["params"]
     return spectral_2dcnn_state_dict_to_flax(sd)
 
 

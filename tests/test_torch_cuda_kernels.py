@@ -409,6 +409,53 @@ def test_lstm_training_pair_matches_autograd_of_plain(hid):
         assert (got - want).abs().max().item() <= GRAD_REL * want.abs().max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(32, 1024), (3, 130)])
+def test_lstm_in_dim_4_matches_plain(b, t):
+    """K3/K4 and K5 at H 64 with in_dim 4, the TBPTT step under a
+    param_model latent (1 audio channel + the LFO + a latent of 2): every
+    forward output within 1e-4 of plain, K5's outputs (dseq's latent rows
+    included) within 5e-4 of their largest magnitude, and the training pair
+    against autograd through the plain forward, the latent's gradient (what
+    trains the param model) among its leaves."""
+    _need_cuda()
+    a = _lstm_inputs(b, t, 64, in_dim=4, seed=b + t)
+    ref = lstm_kernels.lstm_forward_plain(**a, save_states=True)
+    for got, want in zip(lstm_kernels.lstm_forward(**a), ref[:3]):
+        assert (got - want).abs().max().item() <= TOL
+    for got, want in zip(lstm_kernels.lstm_train_forward(**a), ref):
+        assert (got - want).abs().max().item() <= TOL
+    args = _lstm_backward_args(b, t, 64, in_dim=4, seed=b)
+    got5 = lstm_kernels.lstm_backward(*args)
+    want5 = lstm_kernels.lstm_backward_plain(*args)
+    for x, y in zip(got5, want5):
+        assert x.shape == y.shape
+        assert (x - y).abs().max().item() <= GRAD_REL * y.abs().max().item()
+    dlat_k, dlat_p = got5[0][:, :3], want5[0][:, :3]
+    assert (dlat_k - dlat_p).abs().max().item() <= GRAD_REL * dlat_p.abs().max().item()
+
+    x, lat = a["seq"][:, 3:].contiguous(), a["seq"][:, :3].contiguous()
+    tgt = torch.randn(b, 1, t, device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    names = ("w_ih", "w_hh", "b", "fc_k", "fc_b")
+
+    def grads(fn):
+        leaves = [a[n].clone().requires_grad_() for n in names]
+        xs, ls = x.clone().requires_grad_(), lat.clone().requires_grad_()
+        y, _, _ = fn(*leaves, xs, ls, a["h0"], a["c0"])
+        loss = (y - tgt).abs().mean()
+        loss.backward()
+        return loss.item(), [v.grad for v in (*leaves, xs, ls)]
+
+    def plain(w_ih, w_hh, b_, fc_k, fc_b, xs, ls, h0, c0):
+        return lstm_kernels.lstm_forward_plain(torch.cat([ls, xs], 1), xs, h0, c0, w_ih, w_hh, b_, fc_k, fc_b)
+
+    loss_k, g_k = grads(lstm_kernels.lstm_effect_model_train)
+    loss_p, g_p = grads(plain)
+    assert abs(loss_k - loss_p) <= 1e-6 + 1e-4 * abs(loss_p)
+    for got, want in zip(g_k, g_p):
+        assert (got - want).abs().max().item() <= GRAD_REL * want.abs().max().item()
+
+
 # (B, Ci, Co, F, T, kf, kt, dil): ragged T, channel counts below and above
 # one 64-channel tile, every trunk dilation, other odd kernels
 WGRAD_CASES = [

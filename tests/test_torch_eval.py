@@ -510,7 +510,49 @@ def test_weight_hand_off_between_stages(tmp_path, monkeypatch):
     # the loader refuses a .pt and names the script that converts it
     with pytest.raises(NotImplementedError, match="extract_torch_weights.py"):
         tcli._load_lfo_weights(port_lstm, ckpt)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(SystemExit, match="no param_model"):
         EXTRACT.extract(ckpt, "param_model")
+    _param_model_hand_off(tmp_path)
     with pytest.raises(SystemExit, match="no frozen extractor"):
         EXTRACT.extract(str(best), "lfo_model")
+
+
+def _param_model_hand_off(tmp_path):
+    """A TBPTT checkpoint that trains a SpectralDSTCN param model and its
+    extractor ({effect, param, lfo}): `param_model` extracts to an `.npz`
+    whose JAX SpectralDSTCN gives the port model's latent within 1e-5, and
+    `lfo_model` / `effect_model` find the trained extractor and the LSTM."""
+    import jax.numpy as jnp
+
+    from mod_extraction_tpu.models.tcn import SpectralDSTCN as JSpectralDSTCN
+    from mod_extraction_tpu.train.checkpoints import load_weights as jax_load_weights
+    from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, flax_to_state_dict
+    from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
+    from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
+    from mod_extraction_tpu_torch.models.tcn import SpectralDSTCN
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    kw = dict(n_fft=256, hop_len=64, kernel_size=5, out_channels=(4, 4), dilations=(1, 2), strides=(2, 2),
+              n_fc_units=8, latent_dim=2)
+    render = RenderConfig(sr=SR, n_samples=N_TBPTT, effects=(2,), max_delay_samples=89)
+    ext = Spectral2DCNN(n_samples=N_TBPTT, sr=SR, **{k: tuple(v) if isinstance(v, list) else v
+                                                      for k, v in TINY_EXTRACTOR.items()})
+    task = TBPTTEffectModelingTask(
+        LSTMEffectModel(n_hidden=8, latent_dim=3), render, lfo_model=ext, freeze_lfo_model=False,
+        param_model=SpectralDSTCN(n_samples=N_TBPTT, seed=4, **kw), device="cpu",
+    )
+    ckpt = str(tmp_path / "variants.pt")
+    torch.save({"task": task.state_dict(), "step": 0}, ckpt)
+    npz = str(tmp_path / "param.npz")
+    EXTRACT.main([ckpt, npz, "param_model"])
+    x = np.random.default_rng(3).uniform(-0.5, 0.5, (2, 1, 3000)).astype(np.float32)
+    with torch.no_grad():
+        want = task.param_model(torch.from_numpy(x)).numpy()
+    got = JSpectralDSTCN(n_samples=3000, **kw).apply({"params": jax_load_weights(npz)}, jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5)
+    for attribute, convert, model in (("lfo_model", flax_to_state_dict, task.lfo_model),
+                                      ("effect_model", flax_lstm_to_state_dict, task.effect_model)):
+        sd = convert(EXTRACT.extract(ckpt, attribute))
+        assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items()), attribute
+
