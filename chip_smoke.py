@@ -93,7 +93,21 @@ points at full width:
   configs/train_em_sim_flanger_r7.yml's task over dry/wet flanger pairs of
   32 (the wet through K1); (e) `train_steps` bit for bit two `train_step`s.
   (a)-(d) are also held against the CPU (batch 2 of 0.5 s clips, float32
-  convs), the CPU side in spawned processes once the card's paths are timed.
+  convs), the CPU side in spawned processes once the card's paths are timed;
+* `prep`, the data-preparation scripts and the lineage tools as a user runs
+  them: (a) a riff corpus through `scripts/make_synthetic_corpus_torch.py`;
+  (b) `scripts/generate_preproc_datasets_torch.py` on in-memory copies of
+  `configs/data/gen_idmt_fl.yml` and `gen_idmt_ch.yml` pointed at it (batch
+  128 x 88200, 256 examples each: K1 at delay lines 485 and 1764), every
+  triplet read back through `PreprocessedDataset` and the `random_preproc`
+  module, the first batch's rows 0-1 rendered on the CPU, K1 timed at 128
+  rows; (c) `scripts/measure_phaser_warmup_delta_torch.py` at batch 64 with
+  the shipped r5 extractor (K2 at T 88200 and 176400), card vs CPU at batch
+  2 in float32 convs; (d) `scripts/train_resumable_torch.sh` on the fit
+  phase's cut r7 extractor config, two epochs in two processes (K1, K2,
+  counted by each process), then `scripts/export_best_torch.sh` and the
+  export loaded in `Spectral2DCNN`; (e) the EGFx split of
+  `scripts/split_datasets_torch.py`, resampled on the card against the CPU.
 
 For each path it checks that every kernel of the path ran on it (launch
 counts), that the outputs are finite, and that the path on the card agrees
@@ -132,6 +146,7 @@ import torch
 
 import bench_torch
 from bench_torch import LOSSES, LSTM64, N_SAMPLES, PAPER, R7, SR, TBPTT
+from mod_extraction_tpu_torch.ops.launches import launch_counts, read_launch_log, reset_launch_counts
 from mod_extraction_tpu_torch.utils.timing import (
     card_line,
     cuda_ms,
@@ -1911,6 +1926,34 @@ def check_sim_render(fxk, sim) -> float:
     return err
 
 
+EVAL_CPU_THREADS = 4  # the CPU side of the pair shares the host with the phase
+
+
+def eval_pair_config(dtype: str) -> dict:
+    """EVAL_CPU_CONFIG at its `custom.cpu_*` batch and examples (one val
+    batch), its extractor's convs in `dtype`."""
+    from mod_extraction_tpu_torch import cli
+
+    cfg = cli.load_yaml_with_includes(EVAL_CPU_CONFIG)
+    custom = cfg["custom"]
+    cfg["data"]["init_args"].update(batch_size=custom["cpu_batch_size"],
+                                    val_num_examples_per_epoch=custom["cpu_val_num_examples_per_epoch"])
+    cfg["model"]["init_args"]["model"]["init_args"]["compute_dtype"] = dtype
+    return cfg
+
+
+def eval_pair_cpu() -> dict:
+    """The CPU side of the eval phase's card-vs-CPU pair, from the phase's
+    working directory: {conv dtype: metrics}, float32 first, then the
+    config's own dtype."""
+    from mod_extraction_tpu_torch import cli
+
+    torch.set_num_threads(EVAL_CPU_THREADS)
+    shipped = cli.load_yaml_with_includes(EVAL_CPU_CONFIG)["model"]["init_args"]["model"]["init_args"]
+    return {dtype: cli.validate_many([("cpu", eval_pair_config(dtype))], device="cpu")[0][1]
+            for dtype in ("float32", shipped["compute_dtype"])}
+
+
 def run_eval(fxk, lk, rows: list) -> dict:
     """The evaluation path as a user runs it from the repo root, in a
     temporary working directory holding `configs` and `models` (linked) and
@@ -1967,6 +2010,12 @@ def run_eval(fxk, lk, rows: list) -> dict:
             write_synthetic_corpus(f"data/unseen_{domain}", n_train=0, n_val=10, dur_s=12.0, style=domain)
         print(f"[eval] data/idmt_4 and data/unseen_{{{','.join(grid.UNSEEN_DOMAINS)}}} written in "
               f"{time.perf_counter() - t0:.1f} s")
+        # the CPU side of the card-vs-CPU pair, in a process of its own beside the phase
+        code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                "print(json.dumps(chip_smoke.eval_pair_cpu()))")
+        cpu_pair = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+        stack.callback(lambda: cpu_pair.poll() is None and (cpu_pair.kill(), cpu_pair.wait()))
 
         # -- the sim corpora, on the card
         t0 = time.perf_counter()
@@ -2055,19 +2104,19 @@ def run_eval(fxk, lk, rows: list) -> dict:
         # -- one eval config on the card against the CPU, one val batch: in
         # float32 (the model config's setting for parity runs), held; with
         # the shipped bf16 convs, printed (bf16 operands rounded by other
-        # kernels on each side)
-        cfg = cli.load_yaml_with_includes(EVAL_CPU_CONFIG)
-        custom = cfg["custom"]
-        cfg["data"]["init_args"].update(batch_size=custom["cpu_batch_size"],
-                                        val_num_examples_per_epoch=custom["cpu_val_num_examples_per_epoch"])
-        model_args = cfg["model"]["init_args"]["model"]["init_args"]
-        for dtype in ("float32", model_args["compute_dtype"]):
+        # kernels on each side).  The CPU side ran beside the phase.
+        t0 = time.perf_counter()
+        stdout, stderr = cpu_pair.communicate(timeout=900)
+        if cpu_pair.returncode != 0:
+            fail(f"eval: {EVAL_CPU_CONFIG} on the CPU: rc {cpu_pair.returncode}: {stderr[-2000:]}")
+        cpu_metrics = json.loads(stdout.strip().splitlines()[-1])
+        print(f"[eval] the CPU side of the pair: waited {time.perf_counter() - t0:.1f} s")
+        for dtype, on_cpu in cpu_metrics.items():
             t0 = time.perf_counter()
-            model_args["compute_dtype"] = dtype
+            cfg = eval_pair_config(dtype)
             on_card = cli.validate_many([("card", cfg)], device="cuda")[0][1]
-            on_cpu = cli.validate_many([("cpu", cfg)], device="cpu")[0][1]
             rel = max(abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12) for k in on_cpu)
-            print(f"[eval] {EVAL_CPU_CONFIG} ({dtype} convs) at one val batch of {custom['cpu_batch_size']}: "
+            print(f"[eval] {EVAL_CPU_CONFIG} ({dtype} convs) at one val batch of {cfg['data']['init_args']['batch_size']}: "
                   f"card {on_card}, cpu {on_cpu}, worst rel diff {rel:.3e}"
                   + (f" (limit {VAL_RTOL})" if dtype == "float32" else "") + f", {time.perf_counter() - t0:.1f} s")
             if set(on_card) != set(on_cpu):
@@ -2159,23 +2208,6 @@ def ddp_task(name: str):
     return task, make_synthetic_batch(3002, BATCH, N_SAMPLES, SR, "chorus")
 
 
-def _launch_counts() -> dict:
-    from mod_extraction_tpu_torch.ops import conv_kernels as ck
-    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
-    from mod_extraction_tpu_torch.ops import lstm_kernels as lk
-
-    return {**fxk.LAUNCHES, **ck.LAUNCHES, **lk.LAUNCHES}
-
-
-def _reset_launch_counts() -> None:
-    from mod_extraction_tpu_torch.ops import conv_kernels as ck
-    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
-    from mod_extraction_tpu_torch.ops import lstm_kernels as lk
-
-    for c in (fxk, ck, lk):
-        c.reset_launch_counts()
-
-
 def _ddp_rank_steps(names: tuple) -> dict:
     """One rank of the two-rank check: each step on this rank's rows of its
     global batch, counted, its global metrics and parameters returned; then
@@ -2190,10 +2222,10 @@ def _ddp_rank_steps(names: tuple) -> dict:
         task, batch = ddp_task(name)
         local = batch_to_torch(shard_batch(batch, rank, size), task.device)
         rows = local["dry"].shape[0] if "dry" in local else local["mod_sig"].shape[0]
-        _reset_launch_counts()
+        reset_launch_counts()
         metrics = task.train_step(local)
         torch.cuda.synchronize()
-        launches = _launch_counts()
+        launches = launch_counts()
         params = to_numpy(task.trained_model.state_dict())
         grads = {k: p.grad.detach().float().cpu().numpy() for k, p in task.trained_model.named_parameters()
                  if p.grad is not None}
@@ -2287,7 +2319,7 @@ def _ddp_world1(fit_cfgs: dict, out_root: str) -> dict:
     def fits(tag):
         res = {}
         for label, cfg in fit_cfgs.items():
-            _reset_launch_counts()
+            reset_launch_counts()
             out = os.path.join(out_root, f"{label.replace(' ', '_')}_{tag}")
             task = cli.fit(copy.deepcopy(cfg), out_dir=out, device="cuda", max_epochs=1)
             torch.cuda.synchronize()
@@ -2295,7 +2327,7 @@ def _ddp_world1(fit_cfgs: dict, out_root: str) -> dict:
             res[label] = dict(
                 losses=[r["loss"] for r in recs if r["phase"] == "train_step"]
                 + [r["val/loss"] for r in recs if r["phase"] == "epoch"],
-                params=to_numpy(task.trained_model.state_dict()), launches=_launch_counts())
+                params=to_numpy(task.trained_model.state_dict()), launches=launch_counts())
         return res
 
     env = {k: os.environ[k] for k in ("RANK", "WORLD_SIZE")}
@@ -2439,10 +2471,10 @@ def _one_process_step(name: str, sub_batches: int = 1, first_rows_only: bool = F
     if sub_batches > 1:
         task.sub_batch_size = BATCH // sub_batches
         kw["mask_draws"] = torch.rand(4, generator=torch.Generator().manual_seed(0)).expand(sub_batches, 4)
-    _reset_launch_counts()
+    reset_launch_counts()
     metrics = task.train_step(batch_to_torch(batch, task.device), **kw)
     torch.cuda.synchronize()
-    return dict(metrics={k: float(v) for k, v in metrics.items()}, launches=_launch_counts(),
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, launches=launch_counts(),
                 params={k: v.detach().float().cpu().numpy() for k, v in task.trained_model.state_dict().items()},
                 grads={k: p.grad.detach().float().cpu().numpy() for k, p in task.trained_model.named_parameters()
                        if p.grad is not None})
@@ -2722,21 +2754,21 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     returns the launches, the mean step ms after the first, and the last
     metrics."""
     total = dict.fromkeys(per_step, 0)
-    _reset_launch_counts()
+    reset_launch_counts()
     val = {k: v.item() for k, v in task.val_step(val_batch).items()}
-    got = _launch_counts()
+    got = launch_counts()
     if any(got[k] != v for k, v in val_want.items()):
         fail(f"variants {name}: val_step launched {got}, expected {val_want}")
     total = {k: total[k] + got[k] for k in total}
     step_s, metrics = [], None
     for i, tb in enumerate(train_batches):
-        _reset_launch_counts()
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = {k: v.item() for k, v in task.train_step(tb).items()}
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got = _launch_counts()
+        got = launch_counts()
         if any(got[k] != v for k, v in per_step.items()):
             fail(f"variants {name}: train_step {i} launched {got}, expected {per_step}")
         total = {k: total[k] + got[k] for k in total}
@@ -2809,9 +2841,9 @@ def run_variants(lk, rows: list) -> dict:
 
     def batches(name, n, seed=5000):
         """n batches of 32 (the TBPTT items' wet through K1, counted)."""
-        _reset_launch_counts()
+        reset_launch_counts()
         out_ = [_variant_batch(name, seed + s, BATCH, N_SAMPLES, "cuda") for s in range(n)]
-        add(_launch_counts())
+        add(launch_counts())
         return out_
 
     def tbptt_step(n_up):
@@ -2871,15 +2903,15 @@ def run_variants(lk, rows: list) -> dict:
     try:
         tb = batches("param", 2)
         many, single = (cli.RunConfig(variant_config("param"), "cuda").task for _ in range(2))
-        _reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         stacked = many.train_steps(tb)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        add(_launch_counts())
-        _reset_launch_counts()
+        add(launch_counts())
+        reset_launch_counts()
         seq = [single.train_step(b) for b in tb]
-        add(_launch_counts())
+        add(launch_counts())
     finally:
         torch.backends.cudnn.deterministic = prev
     same = all(torch.equal(stacked[k], torch.stack([s[k] for s in seq])) for k in stacked) and all(
@@ -2913,6 +2945,363 @@ def run_variants(lk, rows: list) -> dict:
     out["launches"] = launches
     out["s"] = time.perf_counter() - t_phase
     print(f"[variants total] {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# data preparation and the lineage tools: the port's last scripts, as a user
+# runs them
+# ---------------------------------------------------------------------------
+
+PREP_CORPUS = (8, 4, 12.0)  # train riffs, val riffs, seconds each
+PREP_CONFIGS = ("configs/data/gen_idmt_fl.yml", "configs/data/gen_idmt_ch.yml")
+PREP_EXAMPLES = 256  # two batches of the configs' 128
+PREP_WET_TOL, PREP_MOD_TOL = 1e-4, 1e-6  # the render, card against CPU, first batch's rows 0-1
+PREP_CPU_ROWS = 2
+PREP_WARMUP_BATCH = 64  # the JAX script's batch
+PREP_WARMUP_CPU_BATCH = 2
+PREP_RESUME = (2, 1)  # total epochs, epochs a process: two processes
+PREP_EGFX = ("Chorus", "Clean", "Phaser")  # effect directories of 48 kHz files
+PREP_EGFX_FILES, PREP_EGFX_SECONDS = 10, 1.0
+PREP_EGFX_LSB = 1  # PCM16 steps, the card's resampling against the CPU's
+
+
+def pcm16_roundtrip(x: np.ndarray) -> np.ndarray:
+    """What `data/wav.py`'s PCM16 `wav_write` then `wav_read` give for x."""
+    return (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16).astype(np.float32) / 32768.0
+
+
+def check_preproc(gen, cfg: dict, out: Path, d: int) -> dict:
+    """The triplets `generate` wrote to `out`, against the same draws (the
+    loader is seeded) rendered again on the card: the file names, and every
+    file read back through `PreprocessedDataset` and through the
+    `random_preproc` module's sampler, exactly (the PCM16 round trip of the
+    render, `mod_sig` and `fx_params` as rendered).  Rows 0-1 of the first
+    batch are also rendered on the CPU (PREP_WET_TOL / PREP_MOD_TOL), and K1
+    is timed on that batch.  These launches are comparisons, not counted."""
+    import hashlib
+
+    from mod_extraction_tpu_torch.data.datasets import PreprocessedDataset
+    from mod_extraction_tpu_torch.data.modules import RandomPreprocessedDataModule
+    from mod_extraction_tpu_torch.train.loop import _tree_map
+    from mod_extraction_tpu_torch.train.render import render_batch
+
+    dm, loader = gen.make_loader(cfg, PREP_EXAMPLES)
+    sr, n = int(dm.render_cfg.sr), dm.render_cfg.n_samples
+    want, res, first = {}, {}, None
+    for b, batch in enumerate(loader.epoch(0)):
+        on_card = gen.to_device(batch, "cuda")
+        dry, wet, mod, fx = (a.cpu().numpy() if torch.is_tensor(a) else {k: v.cpu().numpy() for k, v in a.items()}
+                             for a in render_batch(on_card, dm.render_cfg))
+        if b == 0:
+            first = on_card
+            cpu = render_batch(gen.to_device(_tree_map(lambda a: a[:PREP_CPU_ROWS], batch), "cpu"), dm.render_cfg)
+            res["wet_err"] = float(np.abs(wet[:PREP_CPU_ROWS] - cpu[1].numpy()).max())
+            res["mod_err"] = float(np.abs(mod[:PREP_CPU_ROWS] - cpu[2].numpy()).max())
+        for i in range(dry.shape[0]):
+            h = hashlib.sha1(dry[i].tobytes()).hexdigest()[:16]
+            want[h] = (dry[i], wet[i], mod[i], {k: np.asarray(v[i]).item() for k, v in fx.items()})
+    names = sorted(p.name for p in out.iterdir())
+    expect = sorted(f"{h}{s}" for h in want for s in (".npz", "_dry.wav", "_wet.wav"))
+    if len(want) != PREP_EXAMPLES or names != expect:
+        fail(f"prep {out.name}: {len(names)} files written, {len(expect)} expected, or other names")
+    if not (res["wet_err"] <= PREP_WET_TOL and res["mod_err"] <= PREP_MOD_TOL):
+        fail(f"prep {out.name}: the card's render against the CPU's: wet {res['wet_err']}, mod_sig {res['mod_err']}")
+
+    ds = PreprocessedDataset(str(out), n, sr)
+    by_dry, wet_dev = {}, 0.0
+    for i, path in enumerate(ds.pt_paths):
+        dry, wet, mod, fx = want[Path(path).stem]
+        item = ds.getitem(0, i)
+        with np.load(path, allow_pickle=True) as npz:
+            exact = (np.array_equal(item["dry"], pcm16_roundtrip(dry)) and np.array_equal(item["wet"], pcm16_roundtrip(wet))
+                     and np.array_equal(npz["mod_sig"], mod) and np.array_equal(item["mod_sig"], mod)
+                     and npz["fx_params"].item() == fx)
+        if not exact:
+            fail(f"prep {out.name}: {Path(path).stem} does not read back as written")
+        wet_dev = max(wet_dev, float(np.abs(item["wet"] - wet).max()))
+        by_dry[item["dry"].tobytes()] = item
+    rdm = RandomPreprocessedDataModule(dm.batch_size, dm.batch_size, dm.batch_size, str(out), str(out), n, sr)
+    rdm.setup("fit")
+    drawn = next(rdm.train_loader().epoch(0))
+    for j in range(dm.batch_size):
+        item = by_dry.get(drawn["dry"][j].tobytes())
+        if item is None or not (np.array_equal(drawn["wet"][j], item["wet"])
+                                and np.array_equal(drawn["mod_sig"][j], item["mod_sig"])
+                                and all(float(drawn["fx"][k][j]) == float(v) for k, v in item["fx"].items())):
+            fail(f"prep {out.name}: the random_preproc module's row {j} is not a written triplet")
+    res["wet_readback_vs_render"] = wet_dev
+    print(f"[prep {out.name}] {len(want)} triplets read back exactly (PreprocessedDataset, and a batch of "
+          f"{dm.batch_size} from RandomPreprocessedDataModule); wet PCM16 vs render max {wet_dev:.3e} "
+          f"({wet_dev * 32768:.2f} steps of 1/32768); card vs CPU (rows 0-{PREP_CPU_ROWS - 1}) wet "
+          f"{res['wet_err']:.3e} (limit {PREP_WET_TOL}), mod_sig {res['mod_err']:.3e} (limit {PREP_MOD_TOL})")
+    return res, k1_args(first, d)
+
+
+def start_plain_on_cpu(name: str, calls: list, tmp: Path) -> tuple:
+    """Starts a CPU process that runs `fx_kernels.<name>`, a kernel's plain
+    version, on each argument tuple of `calls` (the card's inputs, copied);
+    returns (the process, the file its outputs go to)."""
+    src, dst = tmp / f"{name}_in.pt", tmp / f"{name}_out.pt"
+    torch.save([tuple(a.cpu() if torch.is_tensor(a) else a for a in args) for args in calls], src)
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from mod_extraction_tpu_torch.ops import fx_kernels as f; "
+            f"torch.save([f.{name}(*a) for a in torch.load(sys.argv[1])], sys.argv[2])")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(src), str(dst)], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, dst
+
+
+def plain_errors(proc, dst: Path, outs: list, label: str) -> list:
+    """max-abs of each kernel output in `outs` against the plain version's
+    output that `start_plain_on_cpu`'s process wrote; fails above KERNEL_TOL."""
+    _, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"{label}: the plain version on the CPU: rc {proc.returncode}: {stderr[-2000:]}")
+    errs = [max_abs(o, r) for o, r in zip(outs, torch.load(dst))]
+    if not all(e <= KERNEL_TOL for e in errs):
+        fail(f"{label} disagrees with its plain version on the same inputs: {errs}")
+    return errs
+
+
+def fabricate_egfx_48k(root: Path) -> None:
+    """PREP_EGFX effect directories of the same PREP_EGFX_FILES names at 48 kHz."""
+    from mod_extraction_tpu_torch.data.wav import wav_write
+
+    rng = np.random.default_rng(21)
+    t = np.arange(int(PREP_EGFX_SECONDS * 48000)) / 48000
+    for effect in PREP_EGFX:
+        (root / effect).mkdir(parents=True)
+        for i in range(PREP_EGFX_FILES):
+            x = 0.5 * np.sin(2 * np.pi * rng.uniform(80, 2000) * t) + 0.05 * rng.standard_normal(t.size)
+            wav_write(str(root / effect / f"{i + 1}.wav"), x.astype(np.float32), 48000)
+
+
+def run_prep(rows: list) -> dict:
+    """(a) the riff corpus through `scripts/make_synthetic_corpus_torch.py`;
+    (b) `scripts/generate_preproc_datasets_torch.py` on in-memory copies of
+    `gen_idmt_fl.yml` and `gen_idmt_ch.yml` (batch 128, 88200 samples, K1)
+    pointed at it, the triplets read back and K1 timed at 128 rows, and
+    every row of K1's first batch against `flanger_plain` on the CPU;
+    (c) `scripts/measure_phaser_warmup_delta_torch.py` at batch 64 (K2 and
+    the shipped r5 extractor), both K2 calls ((64, 1, 88200) cold and
+    (64, 1, 176400) warmed) against `phaser_plain` on the CPU on the same
+    inputs, and card against CPU at batch 2 in float32 convs;
+    (d) `scripts/train_resumable_torch.sh` on the fit phase's cut r7
+    extractor config, two epochs in two processes, then
+    `scripts/export_best_torch.sh` and the export loaded; (e) the EGFx split
+    of `scripts/split_datasets_torch.py`, resampled on the card against the
+    CPU."""
+    import copy
+    import os
+    import tempfile
+
+    import yaml
+
+    from mod_extraction_tpu_torch import cli
+    from mod_extraction_tpu_torch.data.synthetic import fit_config
+    from mod_extraction_tpu_torch.data.wav import wav_read
+    from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+    from mod_extraction_tpu_torch.ops import fx_kernels as fxk
+    from mod_extraction_tpu_torch.ops.fx import ms_to_samples
+
+    t_phase = time.perf_counter()
+    corpus_script = load_script("make_synthetic_corpus_torch")
+    gen = load_script("generate_preproc_datasets_torch")
+    warm = load_script("measure_phaser_warmup_delta_torch")
+    split = load_script("split_datasets_torch")
+    none = {k: 0 for k in launch_counts()}
+    out = dict(launches=dict(none), configs={})
+    cpu_ref, procs = None, []
+    k1_calls, k1_outs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            # -- (a) the corpus
+            t0 = time.perf_counter()
+            corpus = tmp / "corpus"
+            corpus_script.main([str(corpus), *(str(v) for v in PREP_CORPUS)])
+            out["corpus_s"] = time.perf_counter() - t0
+            print(f"[prep (a)] corpus {PREP_CORPUS[0]} + {PREP_CORPUS[1]} riffs of {PREP_CORPUS[2]} s in "
+                  f"{out['corpus_s']:.1f} s")
+            # the CPU side of (c) runs beside (b)-(e) in a process of its own
+            code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, 'scripts'); "
+                    "import measure_phaser_warmup_delta_torch as m; "
+                    f"print(json.dumps(m.main({str(corpus / 'val')!r}, {PREP_WARMUP_CPU_BATCH}, 'cpu', 'float32')))")
+            cpu_ref = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+
+            # -- (b) preprocessed triplets, K1 on the card
+            for path in PREP_CONFIGS:
+                t0 = time.perf_counter()
+                cfg = cli.load_yaml_with_includes(path)
+                cfg["data"]["init_args"].update(train_dir=str(corpus / "train"), val_dir=str(corpus / "val"))
+                fl = cfg["data"]["init_args"]["fx_config"]["flanger"]
+                d = ms_to_samples(fl["max_min_delay_ms"], SR) + ms_to_samples(fl["max_lfo_delay_ms"], SR)
+                dest = tmp / Path(path).stem
+                reset_launch_counts()
+                count = gen.generate(copy.deepcopy(cfg), str(dest), PREP_EXAMPLES, "cuda")
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                gen_s = time.perf_counter() - t0
+                n_batches = PREP_EXAMPLES // cfg["data"]["init_args"]["batch_size"]
+                if count != PREP_EXAMPLES or launches != dict(none, flanger=n_batches):
+                    fail(f"prep {path}: {count} examples written, launches {launches}; expected "
+                         f"{PREP_EXAMPLES} and {n_batches} K1 launches")
+                out["launches"]["flanger"] += launches["flanger"]
+                t0 = time.perf_counter()
+                res, args = check_preproc(gen, cfg, dest, d)
+                res.update(generate_s=gen_s, check_s=time.perf_counter() - t0, d=d, launches=launches["flanger"])
+                k1 = check_k1_path(fxk, args, f"prep {Path(path).name}, {tuple(args[0].shape)}, d {d}", plain=False)
+                k1_calls.append(args)
+                k1_outs.append(fxk.flanger(*args).cpu())
+                res.update({f"k1_{k}": k1[k] for k in ("ms", "walk_ms", "bound_ms", "steps_max", "cycles_per_step")})
+                out["configs"][Path(path).name] = res
+                print(f"[prep (b)] {path}: {count} triplets at batch {cfg['data']['init_args']['batch_size']} x "
+                      f"{N_SAMPLES} in {gen_s:.1f} s ({launches['flanger']} K1 launches), checked in "
+                      f"{res['check_s']:.1f} s; K1 {k1['ms']:.4f} ms beside its bound {k1['bound_ms']:.4f} ms")
+
+            # every row of K1's first batches against the plain version, on the CPU beside (c)-(e)
+            procs.append(start_plain_on_cpu("flanger_plain", k1_calls, tmp))
+
+            # -- (c) the phaser warm-up delta, K2 on the card; its inputs and outputs recorded
+            t0 = time.perf_counter()
+            val = str(corpus / "val")
+            k2_calls, k2_outs, phaser = [], [], fxk.phaser
+
+            def recorded_phaser(*args, **kw):
+                wet = phaser(*args, **kw)
+                k2_calls.append(tuple(a.cpu() if torch.is_tensor(a) else a for a in args))
+                k2_outs.append(wet.cpu())
+                return wet
+
+            reset_launch_counts()
+            fxk.phaser = recorded_phaser
+            try:
+                l1 = warm.main(val, PREP_WARMUP_BATCH, "cuda")
+            finally:
+                fxk.phaser = phaser
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            procs.append(start_plain_on_cpu("phaser_plain", k2_calls, tmp))
+            if launches != dict(none, phaser=2) or not all(math.isfinite(v) and v > 0 for v in l1):
+                fail(f"prep warm-up delta: l1 {l1}, launches {launches}; expected 2 K2 launches")
+            out["launches"]["phaser"] += launches["phaser"]
+            card32 = warm.main(val, PREP_WARMUP_CPU_BATCH, "cuda", "float32")
+            out["warmup"] = dict(bf16_batch64=l1, card_f32=card32, s=time.perf_counter() - t0)
+            print(f"[prep (c)] warm-up delta at batch {PREP_WARMUP_BATCH} (bf16 convs as shipped): cold {l1[0]:.6f} "
+                  f"warm {l1[1]:.6f}; {launches['phaser']} K2 launches; {out['warmup']['s']:.1f} s")
+
+            # -- (d) the lineage tools: two processes, the second resuming
+            t0 = time.perf_counter()
+            cfg = fit_config(FIT_LFO_CONFIG, corpus, None, FIT_TRAIN_BATCHES, FIT_VAL_BATCHES)
+            cfg_path = tmp / "resume.yml"
+            cfg_path.write_text(yaml.safe_dump(cfg))
+            runs, log = tmp / "runs", tmp / "launches.jsonl"
+            # the preflight's kernel checks are this script's stages above
+            env = dict(os.environ, PYTHON=sys.executable, OUT_DIR=str(runs), MODX_LAUNCH_LOG=str(log),
+                       SKIP_PARITY_GATE="1")
+            proc = subprocess.run(["bash", str(ROOT / "scripts" / "train_resumable_torch.sh"), str(cfg_path),
+                                   *(str(v) for v in PREP_RESUME)], cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=900)
+            if proc.returncode != 0:
+                fail(f"prep train_resumable_torch.sh rc {proc.returncode}: {proc.stderr[-3000:]}")
+            records = fit_records(str(runs))
+            epochs = [r["epoch"] for r in records if r["phase"] == "epoch"]
+            steps = [r["step"] for r in records if r["phase"] == "train_step"]
+            per_epoch = dict(none, flanger=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES,
+                             phaser=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES)
+            counts = read_launch_log(str(log))
+            if epochs != [0, 1] or steps != list(range(1, 2 * FIT_TRAIN_BATCHES + 1)) or counts != [per_epoch] * 2:
+                fail(f"prep train_resumable_torch.sh: epochs {epochs}, steps {steps}, launches a process {counts}")
+            for k in ("flanger", "phaser"):
+                out["launches"][k] += sum(c[k] for c in counts)
+            run = next(runs.glob("*_metrics.jsonl")).name.removesuffix("_metrics.jsonl")
+            npz = tmp / "export.npz"
+            exp = subprocess.run(["bash", str(ROOT / "scripts" / "export_best_torch.sh"), run, str(npz)], cwd=ROOT,
+                                 env=env, capture_output=True, text=True, timeout=300)
+            ckpts = runs / f"{run}_ckpts"
+            best = ckpts / "best.pt" if (ckpts / "best.pt").exists() else ckpts / "last.pt"
+            if exp.returncode != 0 or not exp.stdout.startswith(f"exporting {run} from {best}"):
+                fail(f"prep export_best_torch.sh rc {exp.returncode}: {exp.stdout[-2000:]} {exp.stderr[-2000:]}")
+            model = load_spectral_2dcnn(str(npz), device="cuda", **PAPER, compute_dtype="bfloat16")
+            state = torch.load(best, map_location="cpu", weights_only=False)["task"]["model"]
+            same = all(torch.equal(v.cpu(), state[k].float()) for k, v in model.state_dict().items())
+            wav, _ = wav_read(next((corpus / "val").glob("*.wav")))
+            x = torch.from_numpy(np.stack([wav[:, :N_SAMPLES]] * 2, 1)).to("cuda")  # (1, 2, T): dry = wet
+            with torch.no_grad():
+                mod_hat, _ = model.eval()(x)
+            if not (same and mod_hat.shape[:2] == (1, 1) and torch.isfinite(mod_hat).all()):
+                fail(f"prep: the export of {best} does not hold its weights ({same}) or its forward fails")
+            out["resume"] = dict(s=time.perf_counter() - t0, epochs=epochs, steps=steps)
+            print(f"[prep (d)] train_resumable_torch.sh {PREP_RESUME[0]} epochs in chunks of {PREP_RESUME[1]}: "
+                  f"epochs {epochs}, steps {steps}, launches a process {counts[0]}; export_best_torch.sh took "
+                  f"{best.name}, its .npz loads in Spectral2DCNN bit for bit; {out['resume']['s']:.1f} s")
+
+            # -- (e) the EGFx split, resampled on the card and on the CPU
+            t0 = time.perf_counter()
+            worst, trees = 0, {}
+            for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+                root = tmp / f"egfx_{side}"
+                fabricate_egfx_48k(root)
+                split.split_egfx(str(root), device=dev)
+                trees[side] = sorted(str(p.relative_to(root)) for p in root.rglob("*.wav")
+                                    if p.parts[len(root.parts)] in ("train", "val", "test"))
+            if trees["card"] != trees["cpu"] or len(trees["card"]) != len(PREP_EGFX) * PREP_EGFX_FILES:
+                fail(f"prep EGFx split: {len(trees['card'])} files on the card, {len(trees['cpu'])} on the CPU")
+            for f in trees["card"]:
+                a, sr = wav_read(str(tmp / "egfx_card" / f))
+                b, _ = wav_read(str(tmp / "egfx_cpu" / f))
+                if sr != 44100 or a.shape != b.shape:
+                    fail(f"prep EGFx split {f}: {sr} Hz, {a.shape} vs {b.shape}")
+                worst = max(worst, int(round(float(np.abs(a - b).max()) * 32768)))
+            if worst > PREP_EGFX_LSB:
+                fail(f"prep EGFx split: the card's files are {worst} PCM16 steps from the CPU's")
+            out["egfx"] = dict(files=len(trees["card"]), worst_lsb=worst, s=time.perf_counter() - t0)
+            print(f"[prep (e)] EGFx split of {len(trees['card'])} files at 48 kHz -> 44.1 kHz: card vs CPU "
+                  f"{worst} PCM16 steps at most (limit {PREP_EGFX_LSB}); {out['egfx']['s']:.1f} s")
+
+            # -- (c), the CPU side
+            t0 = time.perf_counter()
+            stdout, stderr = cpu_ref.communicate(timeout=900)
+            if cpu_ref.returncode != 0:
+                fail(f"prep warm-up delta on the CPU: rc {cpu_ref.returncode}: {stderr[-2000:]}")
+            cpu32 = json.loads(stdout.strip().splitlines()[-1])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(card32, cpu32))
+            out["warmup"].update(cpu_f32=cpu32, rel=rel)
+            print(f"[prep (c)] warm-up delta at batch {PREP_WARMUP_CPU_BATCH}, float32 convs: card {card32}, CPU "
+                  f"{cpu32}, worst rel {rel:.3e} (limit {VAL_RTOL}); waited {time.perf_counter() - t0:.1f} s")
+            if not rel <= VAL_RTOL:
+                fail(f"prep warm-up delta: card {card32} against the CPU {cpu32}")
+
+            # -- K1 of (b) and K2 of (c) against their plain versions on the same inputs
+            t0 = time.perf_counter()
+            k1_errs = plain_errors(*procs[0], k1_outs, "prep K1 at 128 rows")
+            for res, err in zip(out["configs"].values(), k1_errs):
+                res["k1_err"] = err
+            k2_errs = plain_errors(*procs[1], k2_outs, "prep K2 (warm-up delta)")
+            out["warmup"]["k2_err"] = {str(tuple(o.shape)): e for o, e in zip(k2_outs, k2_errs)}
+            print(f"[prep plain] K1 at {[tuple(o.shape) for o in k1_outs]}, all rows: max_abs_err {k1_errs}; "
+                  f"K2 of the warm-up delta: max_abs_err {out['warmup']['k2_err']} (limit {KERNEL_TOL}; "
+                  f"flanger_plain / phaser_plain on the CPU); waited {time.perf_counter() - t0:.1f} s")
+        finally:
+            for proc in [cpu_ref, *(p for p, _ in procs)]:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"])
+        if row["name"] in ("flanger_delay_line", "phaser_allpass"):
+            row["launches"] += out["launches"][key]
+            row["prep_launches"] = out["launches"][key]
+        if row["name"] == "phaser_allpass":
+            row["prep_err"] = out["warmup"]["k2_err"]
+        if row["name"] == "flanger_delay_line":
+            row["prep_128_rows"] = {name: {k.removeprefix("k1_"): v for k, v in res.items() if k.startswith("k1_")}
+                                    | dict(d=res["d"]) for name, res in out["configs"].items()}
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[prep total] {out['s']:.1f} s")
     return out
 
 
@@ -2993,6 +3382,7 @@ def main() -> int:
     print("[eval] " + json.dumps(run_eval(fxk, lk, rows)))
     print("[ddp] " + json.dumps(run_ddp(rows)))
     print("[variants] " + json.dumps(run_variants(lk, rows)))
+    print("[prep] " + json.dumps(run_prep(rows)))
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -57,6 +57,13 @@ def layer_norm_no_affine(
     return ((xs - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def same_pads(kernel: int, dilation: int) -> tuple[int, int]:
+    """torch Conv 'same' padding (symmetric; left gets the smaller half)."""
+    eff = (kernel - 1) * dilation
+    lo = eff // 2
+    return (lo, eff - lo)
+
+
 class _MaxPoolEqMask(torch.autograd.Function):
     """Floor-mode max pool whose backward sends the cotangent to EVERY
     window element equal to the max (the JAX package's eq-mask VJP;

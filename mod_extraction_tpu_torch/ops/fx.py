@@ -1,8 +1,8 @@
 """LFO-driven audio effects (port of `mod_extraction_tpu/ops/fx.py`).
 
 Rendering is data generation: nothing here needs a gradient.  The two
-recurrences run in `ops/fx_kernels.py`: K1 (`flanger`, the counterpart of
-the JAX `flanger_delay_line`) for the flanger/chorus delay line and K2 for
+recurrences run in `ops/fx_kernels.py`: K1 (`flanger`, which
+`flanger_delay_line` calls) for the flanger/chorus delay line and K2 for
 the phaser cascade launch the CUDA kernels on CUDA tensors and use their
 plain versions on CPU tensors.  `apply_flanger_chorus` (the sim-corpus
 generators' flanger/chorus) takes K1 the same way, with no other route.
@@ -46,6 +46,33 @@ def ms_to_samples(ms: float, sr: float) -> int:
     return int((ms / 1000.0) * sr + 0.5)
 
 
+#: The JAX `implementation=` values (`mod_extraction_tpu/ops/fx.py`).
+FLANGER_IMPLEMENTATIONS = ("auto", "scan", "pallas")
+
+
+def flanger_delay_line(
+    x: torch.Tensor,
+    delay_samples: torch.Tensor,
+    feedback: torch.Tensor,
+    depth: torch.Tensor,
+    mix: torch.Tensor,
+    max_delay_samples: int,
+    implementation: str = "auto",
+) -> torch.Tensor:
+    """Fractional delay line with feedback (the JAX `flanger_delay_line`).
+
+    x: (B, C, T); delay_samples: (B, C, T) float delays (below
+    max_delay_samples); feedback/depth/mix: (B, 1, 1).  Linear-interpolated
+    read, feedback write, depth mix, dry/wet mix and the final hard clip.
+    K1 on a CUDA tensor, its plain version on a CPU tensor, and no other
+    route: `implementation` is one of the JAX package's values and chooses
+    nothing here (K1 and the plain version both give the sequential walk's
+    numbers)."""
+    if implementation not in FLANGER_IMPLEMENTATIONS:
+        raise ValueError(f"implementation={implementation!r}: one of {FLANGER_IMPLEMENTATIONS}")
+    return fx_kernels.flanger(x, delay_samples, feedback, depth, mix, max_delay_samples)
+
+
 def apply_flanger_chorus(
     x: torch.Tensor,
     mod_sig: torch.Tensor,
@@ -81,7 +108,7 @@ def apply_flanger_chorus(
     mmd = ms_to_samples(max_min_delay_ms, sr)
     mld = ms_to_samples(max_lfo_delay_ms, sr)
     delay_samples = mld * width * mod_sig + min_delay_width * mmd
-    return fx_kernels.flanger(x, delay_samples, feedback, depth, mix, mmd + mld)
+    return flanger_delay_line(x, delay_samples, feedback, depth, mix, mmd + mld)
 
 
 def phaser_freq_max(sr: float) -> float:

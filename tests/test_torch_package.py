@@ -49,7 +49,9 @@ PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.
                 "scripts/extract_torch_weights.py", "scripts/validate_ckpt_torch.py",
                 "scripts/run_eval_grid_torch.py", "scripts/make_sim_effect_data_torch.py",
                 "scripts/make_sim_chorus_gt_control_torch.py", "scripts/resample_torch.py",
-                "scripts/fit_ddp_torch.py")
+                "scripts/fit_ddp_torch.py", "scripts/make_synthetic_corpus_torch.py",
+                "scripts/split_datasets_torch.py", "scripts/generate_preproc_datasets_torch.py",
+                "scripts/measure_phaser_warmup_delta_torch.py", "scripts/write_model_cards_torch.py")
 # the training entry point's modules (config/CLI, data pipeline, Trainer)
 ENTRY_MODULES = ("cli", "native", "train.loop", "data.wav", "data.datasets", "data.loader",
                  "data.corpus", "data.modules", "evaluation.tables")
@@ -111,11 +113,14 @@ def test_training_eval_and_chip_smoke_do_not_import_matplotlib():
     without it (the GPU machine has none)."""
     scripts = [str(ROOT / f) for f in ("chip_smoke.py", "scripts/train_torch.py", "scripts/validate_torch.py",
                                         "scripts/run_eval_grid_torch.py", "scripts/validate_ckpt_torch.py",
-                                        "scripts/resample_torch.py")]
+                                        "scripts/resample_torch.py", "scripts/split_datasets_torch.py",
+                                        "scripts/generate_preproc_datasets_torch.py",
+                                        "scripts/measure_phaser_warmup_delta_torch.py")]
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['matplotlib'] = None\n"
-        "for m in ('cli', 'train.loop', 'evaluation.tables', 'parallel.dist', 'parallel.dryrun', 'ops.resample'):\n"
+        "for m in ('cli', 'train.loop', 'evaluation.tables', 'parallel.dist', 'parallel.dryrun', 'ops.resample',\n"
+        "          'ops.launches', 'models', 'ops', 'utils', 'data', 'parallel', 'losses'):\n"
         "    importlib.import_module('mod_extraction_tpu_torch.' + m)\n"
         f"for i, f in enumerate({scripts!r}):\n"
         "    spec = importlib.util.spec_from_file_location(f'script{i}', f)\n"
