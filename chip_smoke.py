@@ -20,7 +20,8 @@ points at full width:
   `configs/train_em_sim_flanger_r7.yml`: the shipped LSTM-64 conditioned on
   the frozen r7 extractor (bf16), flanger batches of 32, a 1024-sample
   warm-up and 83 chunk updates of 1024 samples per step, a `val_step` and
-  a few `train_step`s (kernels K1, K3, K4, K5);
+  a few `train_step`s (kernels K1, K3, K4, K5), held against the CPU at
+  batch 3, whose side runs in a process of its own from before stage 1;
 * stage 2 at H 160, the task of `configs/train_em_sim_chorus_h160.yml`:
   the shipped LSTM-160 chorus model on the frozen r6 extractor, synthetic
   chorus batches of 32 (delay line 1764), the config's AdamW, a `val_step`
@@ -72,6 +73,16 @@ points at full width:
   written with no FAILED or SKIPPED block, the launches those of the
   batches validated, each config's wall time and examples a second
   printed, and `eval_lfo.yml` at one val batch held card against CPU;
+* `reference`, the reference's `.pt` checkpoints (`models/torch_port.py`):
+  the shipped egfx phaser LSTM-64, the extractor of
+  configs/eval_em_unseen_effect.yml and the r7 extractor rewritten in the
+  reference's state_dict layout, loaded strictly into reference-architecture
+  modules and imported back to the shipped `.npz` files by
+  `scripts/import_reference_weights_torch.py`; the imported extractor
+  against the reference module on the card; `eval_lfo.yml` from the `.pt`
+  beside the `.npz` (K2); configs/train_em_sim_flanger_r7.yml's task on the
+  r7 `.pt` beside the `.npz`, one step each bit for bit (K1, K3, K4, K5);
+  the imported LSTM-64 against `nn.LSTM` and streamed stereo (K3);
 * `ddp`, data parallelism (`parallel/dist.py`) on the one card: (a) the
   two fit configs' `cli.fit` in one rank of a real NCCL group (spawned with
   torchrun's variables) against the same fits with no group, losses and
@@ -119,8 +130,8 @@ paths' batches against the sequential walk bit for bit, its per-row step
 counts against the plain count, and timed in turns with the walk.
 
 Prints the card's name and power limit, per-step times, a profile of one
-step of each path, and on the last two lines a JSON object of per-kernel
-measurements and a JSON status line.
+step of each path, every phase's seconds, and on the last two lines a JSON
+object of per-kernel measurements and a JSON status line.
 Exits non-zero, with no result, when CUDA is unavailable or any phase fails.
 Imports torch, numpy and the port only.
 
@@ -133,10 +144,13 @@ tests/test_torch_data.py`).
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1074,15 +1088,87 @@ def lstm_ops_bytes(b, t, hid, in_dim, out_ch, backward=False, save_states=False)
     return ops, 4 * floats
 
 
-def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
+# stage 2's card-vs-CPU checks: batch 3 (mixed validity), float32, the plain
+# kernels on the CPU; the CPU side runs in a process of its own, started
+# before stage 1, beside the card (its train step alone takes about a minute)
+STAGE2_CPU_SEED, STAGE2_CPU_BATCH, STAGE2_CPU_THREADS = 2001, 3, 2
+
+
+def stage2_render_cfg():
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+
+    return RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,), max_delay_samples=485)
+
+
+def stage2_task(dev: str, lfo_model):
+    """Stage 2's task (configs/train_em_sim_flanger_r7.yml, as bench_torch.py's
+    --tbptt sets it up) with the shipped LSTM-64 on `dev`, conditioned on
+    `lfo_model` (None: the ground-truth LFO)."""
+    from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    return TBPTTEffectModelingTask(
+        load_lstm_effect_model(str(LSTM64), device=dev), stage2_render_cfg(), lfo_model=lfo_model,
+        device=dev, **TBPTT,
+    )
+
+
+def stage2_extracted(task, batch) -> tuple:
+    """(the smoothed LFO, its corners, the extractor's raw output) of a
+    batch under `task`'s extractor, each moved to the CPU."""
+    from mod_extraction_tpu_torch.ops.corners import find_corners, smoothen
+    from mod_extraction_tpu_torch.train.render import render_batch
+
+    with torch.no_grad():
+        dry, wet, mod_frames, _ = render_batch(batch, stage2_render_cfg())
+    mod_hat = task._extract_mod_sig(dry, wet, mod_frames)
+    sm = smoothen(mod_hat, TBPTT["model_smooth_n_frames"])
+    return sm.cpu(), [x.cpu() for x in find_corners(sm)], mod_hat.cpu()
+
+
+def stage2_cpu_reference(out_path: str) -> None:
+    """The CPU side of stage 2's card-vs-CPU checks, in a process of its
+    own: on the ground-truth LFO the val and train metrics and the LSTM's
+    parameters after the step; on the r7 extractor (float32 convs) the
+    smoothed LFO, its corners and the extractor's output, then the val
+    metrics.  Saved to `out_path` with the seconds it took."""
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
+    from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(STAGE2_CPU_THREADS)
+    bt = batch_to_torch(make_synthetic_batch(STAGE2_CPU_SEED, STAGE2_CPU_BATCH, N_SAMPLES, SR, "flanger"), "cpu")
+    t = stage2_task("cpu", None)
+    v = {k: x.item() for k, x in t.val_step(bt).items()}
+    m = {k: x.item() for k, x in t.train_step(bt).items()}
+    gt = (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])
+    t = stage2_task("cpu", load_spectral_2dcnn(str(R7), device="cpu", **PAPER, compute_dtype="float32"))
+    ext = stage2_extracted(t, bt)
+    ext_val = {k: x.item() for k, x in t.val_step(bt).items()}
+    torch.save(dict(gt=gt, ext=ext, ext_val=ext_val, s=time.perf_counter() - t0), out_path)
+
+
+def start_stage2_cpu(tmp: str) -> tuple:
+    """Starts `stage2_cpu_reference` in a CPU process (no card visible);
+    returns (the process, the file it writes, its start time)."""
+    import os
+
+    out = str(Path(tmp) / "stage2_cpu.pt")
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.stage2_cpu_reference({out!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> list:
     """Stage 2's checks and main path; adds K1 on stage 2's batch (d 485) to
-    `k1_row` under "d485", and the step's mean, profiled wall and busy ms to
-    `summary`."""
+    `k1_row` under "d485", and the step's mean, profiled wall and busy ms and
+    the CPU side's seconds to `summary`.  `cpu_ref`: `start_stage2_cpu`'s
+    process, collected for the card-vs-CPU checks."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
     from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
-    from mod_extraction_tpu_torch.ops.corners import find_corners, smoothen
-    from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
-    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+    from mod_extraction_tpu_torch.ops.corners import smoothen
 
     # -- kernels against their plain versions: the register-resident kernels
     #    (H 64, 16), the cluster kernels (H 160)
@@ -1103,16 +1189,9 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     check_lstm_kernels(lk, a, 7, f"LSTM B={BATCH} T={TBPTT_CHUNK} H=64 (shipped weights)")
 
     # -- the main path, counted per step
-    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,), max_delay_samples=485)
+    cfg = stage2_render_cfg()
     extractor = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
-
-    def make_task(dev, lfo_model):
-        return TBPTTEffectModelingTask(
-            load_lstm_effect_model(str(LSTM64), device=dev), cfg, lfo_model=lfo_model,
-            device=dev, **TBPTT,
-        )
-
-    task = make_task("cuda", extractor)
+    task = stage2_task("cuda", extractor)
     n_up = task.updates_per_batch
     if n_up != 83:
         fail(f"updates_per_batch is {n_up}, expected 83")
@@ -1172,16 +1251,27 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
           f"audio_s_per_s={audio_s / step_mean:.2f} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
 
-    # -- the whole path against the CPU, float32, batch 3, plain kernels there.
+    # -- the whole path against the CPU, float32, batch 3, plain kernels there
+    #    (the CPU side from `stage2_cpu_reference`'s process).
     #    Ground-truth conditioning: val and train metrics and the parameters.
-    ref_np = make_synthetic_batch(2001, 3, N_SAMPLES, SR, "flanger")  # mixed validity
-    out = {}
-    for dev in ("cuda", "cpu"):
-        t = make_task(dev, None)
-        bt = batch_to_torch(ref_np, dev)
-        v = {k: x.item() for k, x in t.val_step(bt).items()}
-        m = {k: x.item() for k, x in t.train_step(bt).items()}
-        out[dev] = (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])
+    ref_np = make_synthetic_batch(STAGE2_CPU_SEED, STAGE2_CPU_BATCH, N_SAMPLES, SR, "flanger")  # mixed validity
+    t = stage2_task("cuda", None)
+    bt = batch_to_torch(ref_np, "cuda")
+    v = {k: x.item() for k, x in t.val_step(bt).items()}
+    m = {k: x.item() for k, x in t.train_step(bt).items()}
+    out = {"cuda": (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])}
+    proc, path, started = cpu_ref
+    t0 = time.perf_counter()
+    _, stderr = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"stage 2 on the CPU: rc {proc.returncode}: {stderr[-3000:]}")
+    cpu = torch.load(path, weights_only=False)
+    out["cpu"] = cpu["gt"]
+    summary.update(cpu_s=cpu["s"], cpu_waited_s=waited, cpu_saved_s=cpu["s"] - waited)
+    print(f"[stage 2 CPU side, b={STAGE2_CPU_BATCH}] its process took {cpu['s']:.1f} s beside the card "
+          f"(started {t0 - started:.1f} s before it was asked for); waited {waited:.1f} s: the cut saved "
+          f"{cpu['s'] - waited:.1f} s")
     for what, i in (("val_step", 0), ("train_step", 1)):
         for k in out["cpu"][i]:
             a_, b_ = out["cuda"][i][k], out["cpu"][i][k]
@@ -1194,7 +1284,7 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     def control(scale):
         """The card's parameters after the same step with the gate-bias
         gradient scaled, against the CPU's sound ones."""
-        t = make_task("cuda", None)
+        t = stage2_task("cuda", None)
         t.effect_model.b_gates.register_hook(lambda g: g * scale)
         t.train_step(batch_to_torch(ref_np, "cuda"))
         return max(max_abs(x.detach().cpu(), y) for x, y in zip(t.effect_model.parameters(), out["cpu"][2]))
@@ -1210,21 +1300,13 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
 
     #    Extractor conditioning: the smoothed LFO, its corners, and (when no
     #    corner flips) the val metrics.
-    ref_cfg = dict(PAPER, compute_dtype="float32")
-    ext = {}
-    for dev in ("cuda", "cpu"):
-        t = make_task(dev, load_spectral_2dcnn(str(R7), device=dev, **ref_cfg))
-        bt = batch_to_torch(ref_np, dev)
-        with torch.no_grad():
-            dry, wet, mod_frames, _ = render_batch(bt, cfg)
-        mod_hat = t._extract_mod_sig(dry, wet, mod_frames)
-        sm = smoothen(mod_hat, TBPTT["model_smooth_n_frames"])
-        ext[dev] = (sm.cpu(), [x.cpu() for x in find_corners(sm)], t, bt, mod_hat.cpu())
+    t = stage2_task("cuda", load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="float32"))
+    ext = {"cuda": stage2_extracted(t, bt), "cpu": cpu["ext"]}
     sm_err = max_abs(ext["cuda"][0], ext["cpu"][0])
     flips = sum(int((x != y).sum()) for x, y in zip(ext["cuda"][1], ext["cpu"][1]))
     # the smoothing itself gives the CPU's bits on the card (additions in a
     # fixed order), so flips can come only from the extractor's output
-    sm_exact = torch.equal(ext["cuda"][0], smoothen(ext["cuda"][4], TBPTT["model_smooth_n_frames"]))
+    sm_exact = torch.equal(ext["cuda"][0], smoothen(ext["cuda"][2], TBPTT["model_smooth_n_frames"]))
     print(f"[TBPTT r7 f32 LFO card vs CPU, b=3] smoothed max_abs={sm_err:.3e} corner_flips={flips} "
           f"smoothing_bit_exact={sm_exact}")
     if not sm_err <= KERNEL_TOL:
@@ -1232,8 +1314,7 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict) -> list:
     if not sm_exact:
         fail("smoothing the same LFO gives other bits on the card than on the CPU")
     if flips == 0:
-        vals = {dev: {k: x.item() for k, x in ext[dev][2].val_step(ext[dev][3]).items()}
-                for dev in ("cuda", "cpu")}
+        vals = {"cuda": {k: x.item() for k, x in t.val_step(bt).items()}, "cpu": cpu["ext_val"]}
         for k in vals["cpu"]:
             if not math.isclose(vals["cuda"][k], vals["cpu"][k], rel_tol=VAL_RTOL, abs_tol=1e-6):
                 fail(f"TBPTT val_step (r7) {k}: card {vals['cuda'][k]} vs CPU {vals['cpu'][k]}")
@@ -1505,7 +1586,6 @@ def run_serving(lk, rng) -> dict:
     full call, against the CPU, and through its reloaded `.pt2` artifact;
     K3's times per buffer and the three real-time factors.  Returns what K3's
     row of the kernels line adds."""
-    import tempfile
 
     bts = load_script("bench_torch_streaming")
     from mod_extraction_tpu_torch.export.streaming import (
@@ -1726,7 +1806,6 @@ def run_fit(label: str, config: str, counters, expected, bench_line: dict, rows:
     for that pair).  `counters` are the launch-count modules of the path's
     kernels; `expected(task)` the launches an epoch ({counter: n})."""
     import copy
-    import tempfile
 
     from mod_extraction_tpu_torch import cli
     from mod_extraction_tpu_torch.data.synthetic import (
@@ -1972,9 +2051,7 @@ def run_eval(fxk, lk, rows: list) -> dict:
     and checkpoint is there), the launches must be those of the work done,
     and one eval config holds its card metrics against the CPU's in float32
     (the shipped bf16 convs' difference is printed beside it)."""
-    import contextlib
     import os
-    import tempfile
 
     from mod_extraction_tpu_torch import cli
     from mod_extraction_tpu_torch.data.synthetic import write_synthetic_corpus
@@ -2142,6 +2219,363 @@ def run_eval(fxk, lk, rows: list) -> dict:
     print(f"[eval total] {total:.1f} s")
     return dict(s=total, configs=timings, launches=dict(launches, lstm_forward_h160=h160),
                 sim_wet_err=sim_err, card_vs_cpu_rel=worst)
+
+
+# ---------------------------------------------------------------------------
+# reference: the reference's `.pt` checkpoints through models/torch_port.py,
+# scripts/import_reference_weights_torch.py and the CLI's `.pt` weights
+# ---------------------------------------------------------------------------
+
+# shipped weights rewritten in the reference's layout: the egfx phaser
+# LSTM-64 (trained by the reference, imported) and the extractor of
+# configs/eval_em_unseen_effect.yml; stage 2 takes the r7 extractor
+REF_LSTM = ROOT / "models" / "lstm_64__lfo_2dcnn_io_sa_25_25_no_ch_ln__egfx_ph_2_peak.npz"
+REF_CNN = ROOT / "models" / "lfo_2dcnn_io_sa_25_25_no_ch_ln__ph_fl_ch_all_2__idmt_4.npz"
+REF_EVAL_CONFIG = "configs/eval_lfo.yml"
+REF_CNN_TOL = 5e-5  # the imported extractor against the reference module (tests/test_spectral2dcnn_port.py)
+REF_FEATURES_BATCH = 4
+REF_FORWARD_T = 4096  # the imported LSTM-64 at (2, 1, T) against the reference module, KERNEL_TOL
+REF_STREAM_SAMPLES, REF_STREAM_BUFFER = 44100, (37, 516)  # stereo, random buffer lengths in this range
+
+
+def reference_frontend(n_mels: int = PAPER["n_mels"]) -> torch.nn.Module:
+    """The buffers of the reference's torchaudio `MelSpectrogram` (44.1 kHz,
+    n_fft 1024) under their names, `spectrogram.window` and `mel_scale.fb`."""
+    from mod_extraction_tpu_torch.ops.stft import hann_window, mel_filterbank
+
+    fe = torch.nn.Module()
+    fe.spectrogram, fe.mel_scale = torch.nn.Module(), torch.nn.Module()
+    fe.spectrogram.register_buffer("window", torch.from_numpy(hann_window(PAPER["n_fft"])))
+    fe.mel_scale.register_buffer("fb", torch.from_numpy(mel_filterbank(int(SR), PAPER["n_fft"], n_mels)))
+    return fe
+
+
+class ReferenceCNN(torch.nn.Module):
+    """The reference's Spectral2DCNN (`mod_extraction/models.py:128-215`),
+    at the paper's size by default, on Mel features: [LayerNorm over (bins,
+    frames), no affine -> dilated "same" Conv2d -> MaxPool2d((2, 1)) ->
+    PReLU] a layer, in an `nn.Sequential` `cnn`; mean over bins; 1x1
+    Conv1d `output`; sigmoid.  `spectrogram` holds its Mel frontend's
+    buffers."""
+
+    def __init__(self, in_ch=PAPER["in_ch"], n_mels=PAPER["n_mels"], n_frames=N_FRAMES,
+                 chans=PAPER["out_channels"], dils=PAPER["temp_dilations"], kernel=PAPER["kernel_size"]):
+        super().__init__()
+        self.spectrogram = reference_frontend(n_mels)
+        layers, bins, prev = [], n_mels, in_ch
+        for ch, d in zip(chans, dils):
+            layers += [torch.nn.LayerNorm([bins, n_frames], elementwise_affine=False),
+                       torch.nn.Conv2d(prev, ch, kernel, dilation=(1, d), padding="same"),
+                       torch.nn.MaxPool2d((2, 1)), torch.nn.PReLU(ch)]
+            bins //= 2
+            prev = ch
+        self.cnn = torch.nn.Sequential(*layers)
+        self.output = torch.nn.Conv1d(prev, 1, 1)
+
+    def forward(self, spec):
+        h = self.cnn(torch.log(torch.clamp(spec, min=1e-7)))
+        return torch.sigmoid(self.output(h.mean(dim=-2)))
+
+
+class ReferenceLSTM(torch.nn.Module):
+    """The reference's LSTM effect model: `nn.LSTM` on cat(latent, x),
+    `nn.Linear`, + x, tanh (LSTM-64 by default)."""
+
+    def __init__(self, in_dim: int = 2, n_hidden: int = 64):
+        super().__init__()
+        self.lstm = torch.nn.LSTM(in_dim, n_hidden, batch_first=True)
+        self.fc = torch.nn.Linear(n_hidden, 1)
+
+    def forward(self, x, latent):
+        out, _ = self.lstm(torch.cat([latent, x], 1).transpose(1, 2))
+        return torch.tanh(self.fc(out).transpose(1, 2) + x)
+
+
+def reference_layout(npz: Path) -> dict:
+    """A shipped `.npz` rewritten in the reference's state_dict layout, the
+    inverse of `models/torch_port.py` (kept here, not in the package): an
+    LSTM's fused gate bias split as b/2 + b/2 (which sums back exactly); a
+    Spectral2DCNN's convs at `cnn.{4k+1}`, PReLUs at `cnn.{4k+3}`, the head
+    as a 1x1 Conv1d `output`, and the Mel frontend's buffers as extra keys."""
+    with np.load(npz) as f:
+        w = {k: f[k] for k in f.files}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    if "w_hh" in w:
+        half = w["b_gates"] / np.float32(2)
+        return {"lstm.weight_ih_l0": t(w["w_ih"].T), "lstm.weight_hh_l0": t(w["w_hh"].T),
+                "lstm.bias_ih_l0": t(half), "lstm.bias_hh_l0": t(half),
+                "fc.weight": t(w["fc/kernel"].T), "fc.bias": t(w["fc/bias"])}
+    sd = {}
+    for k in range(sum(1 for key in w if key.startswith("Conv_") and key.endswith("/kernel"))):
+        sd[f"cnn.{4 * k + 1}.weight"] = t(np.transpose(w[f"Conv_{k}/kernel"], (3, 2, 0, 1)))
+        sd[f"cnn.{4 * k + 1}.bias"] = t(w[f"Conv_{k}/bias"])
+        sd[f"cnn.{4 * k + 3}.weight"] = t(w[f"PReLU_{k}/alpha"])
+    sd["output.weight"] = t(w["Dense_0/kernel"].T[:, :, None])
+    sd["output.bias"] = t(w["Dense_0/bias"])
+    sd.update({f"spectrogram.{k}": v for k, v in reference_frontend().state_dict().items()})
+    return sd
+
+
+@contextlib.contextmanager
+def recorded(fxk, name: str, calls: list, outs: list):
+    """While open, `fx_kernels.<name>` also records each call's arguments
+    and output, moved to the CPU (for callers that look the kernel up on
+    the module at each call, as `ops/fx.py` does)."""
+    kernel = getattr(fxk, name)
+
+    def wrapper(*args, **kw):
+        y = kernel(*args, **kw)
+        calls.append(tuple(a.cpu() if torch.is_tensor(a) else a for a in args))
+        outs.append(y.cpu())
+        return y
+
+    setattr(fxk, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(fxk, name, kernel)
+
+
+def run_reference(fxk, lk, rows: list) -> dict:
+    """Reading the reference's `.pt` checkpoints, at the paper's widths:
+    (1) the shipped egfx phaser LSTM-64, the extractor of
+    configs/eval_em_unseen_effect.yml and the r7 extractor rewritten as
+    reference-layout `.pt` files, each loaded strictly into a
+    reference-architecture module; (2) `scripts/import_reference_weights_torch.py`
+    back to the shipped `.npz` files, array for array; (3) the imported
+    extractor (float32 convs) against the reference module on the same Mel
+    features, within 5e-5; (4) `eval_lfo.yml` with its `ckpt_path` the
+    `.pt`, beside the same run from the `.npz`, two val batches each: the
+    tables bit for bit (K2); (5) configs/train_em_sim_flanger_r7.yml's task
+    with `lfo_model_weights_path` the r7 `.pt`: its extractor bit for bit
+    the `.npz` task's, and one `train_step` at batch 32 the same loss and
+    parameters (K1 renders the wet; K3, K4, K5); (6) the imported LSTM-64
+    at (2, 1, 4096) against the reference module within 1e-4, and streamed
+    stereo over random buffers of 37-516 samples within 1e-5 of one call
+    (K3).  Every kernel launched here is held against its plain version on
+    the same inputs: K1 and K2 on the CPU in processes beside the phase, K3,
+    K4 and K5 on the card."""
+    import copy
+
+    from mod_extraction_tpu_torch import cli
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch, write_synthetic_corpus
+    from mod_extraction_tpu_torch.evaluation.tables import format_validate_table
+    from mod_extraction_tpu_torch.export.streaming import StreamingEffectModel
+    from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict
+    from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel, lstm_init_state
+    from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
+    from mod_extraction_tpu_torch.models.torch_port import REFERENCE, load_pt, reference_state_dict
+    from mod_extraction_tpu_torch.ops.stft import mel_spectrogram
+    from mod_extraction_tpu_torch.utils.device import resolve_device
+
+    importer = load_script("import_reference_weights_torch")
+    resolve_device("cuda")  # float32 convs and matmuls without TF32
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    k2_procs, k1_proc = [], None
+
+    def count(what: str, want: dict) -> None:
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        if got != want:
+            fail(f"reference {what}: launched {got}, expected {want}")
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp_, contextlib.ExitStack() as stack:
+        tmp = Path(tmp_)
+        stack.callback(lambda: [(p.kill(), p.wait()) for p, _ in filter(None, k2_procs + [k1_proc])
+                                if p.poll() is None])
+
+        # -- (1) the reference-layout files, each loaded strictly into its module
+        t0 = time.perf_counter()
+        pts = {}
+        for npz in (REF_LSTM, REF_CNN, R7):
+            sd = reference_layout(npz)
+            (ReferenceLSTM() if npz == REF_LSTM else ReferenceCNN()).load_state_dict(sd, strict=True)
+            pts[npz] = tmp / f"{npz.stem}.pt"
+            torch.save(sd, pts[npz])
+        # -- (2) imported back, array for array the shipped files
+        for npz, pt in pts.items():
+            got = tmp / f"{npz.stem}.imported.npz"
+            importer.main([str(pt), str(got)] + ([] if npz == REF_LSTM else ["2dcnn"]))
+            with np.load(got) as a, np.load(npz) as b:
+                if sorted(a.files) != sorted(b.files) or not all(
+                        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in b.files):
+                    fail(f"reference: {pt.name} imports to other arrays than {npz.name}")
+        out["files_s"] = time.perf_counter() - t0
+        print(f"[reference (1, 2)] {', '.join(p.name for p in pts.values())}: written in the reference layout, "
+              f"each loaded with strict=True into ReferenceLSTM / ReferenceCNN, and imported by "
+              f"import_reference_weights_torch.py back to the shipped .npz array for array; {out['files_s']:.1f} s")
+
+        # -- (3) the imported extractor on the card against the reference module
+        t0 = time.perf_counter()
+        kind, sd = load_pt(str(pts[REF_CNN]))
+        if kind != REFERENCE:
+            fail(f"reference: {pts[REF_CNN].name} read as a {kind}")
+        model = Spectral2DCNN(**PAPER, compute_dtype="float32").to("cuda").eval()
+        model.load_state_dict(reference_state_dict(sd, model))
+        ref = ReferenceCNN().to("cuda").eval()
+        ref.load_state_dict(sd)
+        dry = batch_to_torch(make_synthetic_batch(7000, 2 * REF_FEATURES_BATCH, N_SAMPLES, SR, "flanger"),
+                             "cuda")["dry"]
+        x = torch.cat([dry[:REF_FEATURES_BATCH], dry[REF_FEATURES_BATCH:]], 1)
+        with torch.no_grad():
+            spec = mel_spectrogram(x, int(SR), PAPER["n_fft"], PAPER["hop_len"], PAPER["n_mels"])
+            got, _ = model(x, features=spec)
+            want = ref(spec)
+        cnn_err = max_abs(got, want)
+        out["extractor"] = dict(max_abs_err=cnn_err, s=time.perf_counter() - t0)
+        print(f"[reference (3)] the imported {REF_CNN.stem} on the card, float32 convs, at "
+              f"{tuple(spec.shape)} Mel features: max_abs_err {cnn_err:.3e} against ReferenceCNN "
+              f"(limit {REF_CNN_TOL})")
+        if not cnn_err <= REF_CNN_TOL:
+            fail(f"reference: the imported extractor is {cnn_err} from the reference module")
+
+        # -- (4) eval_lfo.yml from the .pt beside the .npz, two val batches each (K2)
+        t0 = time.perf_counter()
+        corpus = tmp / "idmt_4"
+        write_synthetic_corpus(str(corpus), n_train=1, n_val=8)
+        base = cli.load_yaml_with_includes(str(ROOT / REF_EVAL_CONFIG))
+        base["data"]["init_args"].update(train_dir=str(corpus / "train"), val_dir=str(corpus / "val"))
+        variants = [(label, _cut_val(dict(copy.deepcopy(base), ckpt_path=str(path))))
+                    for label, path in (("pt", pts[REF_CNN]), ("npz", REF_CNN))]
+        k2_calls, k2_outs = [], []
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        reset_launch_counts()
+        try:
+            with recorded(fxk, "phaser", k2_calls, k2_outs):
+                evals = cli.validate_many(variants, device="cuda")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        n_val = 2 * _val_batches(variants[0][1])
+        count("eval pair", {"phaser": n_val})
+        tables = [format_validate_table({f"val/{k}": v for k, v in m.items()}) for _, m in evals]
+        same = evals[0][1] == evals[1][1] and tables[0] == tables[1]
+        half = n_val // 2
+        same_k2 = all(torch.equal(a, b) for a, b in zip(k2_outs[:half], k2_outs[half:]))
+        for i, call in enumerate(k2_calls[:half]):  # a process a call: each is a 88200-step loop
+            (tmp / f"k2_{i}").mkdir()
+            k2_procs.append(start_plain_on_cpu("phaser_plain", [call], tmp / f"k2_{i}"))
+        out["eval"] = dict(metrics=evals[0][1], tables_equal=same, s=time.perf_counter() - t0)
+        print(f"[reference (4)] {REF_EVAL_CONFIG} with ckpt_path {pts[REF_CNN].name} and with {REF_CNN.name}, "
+              f"{_val_batches(variants[0][1])} val batches of {variants[0][1]['data']['init_args']['batch_size']} "
+              f"each: tables equal {same}, K2's outputs equal {same_k2}; {evals[0][1]}; "
+              f"{out['eval']['s']:.1f} s\n{tables[0]}")
+        if not (same and same_k2):
+            fail(f"reference: eval from the .pt {evals[0][1]} against the .npz {evals[1][1]}")
+
+        # -- (5) stage 2 from the r7 .pt beside the .npz (K1 renders the wet; K3, K4, K5)
+        t0 = time.perf_counter()
+        cfg = cli.load_yaml_with_includes(str(ROOT / FIT_TBPTT_CONFIG))
+        tasks = {}
+        for label, path in (("pt", pts[R7]), ("npz", R7)):
+            c = copy.deepcopy(cfg)
+            c["model"]["init_args"]["lfo_model_weights_path"] = str(path)
+            tasks[label] = cli.RunConfig(c, "cuda").task
+        ext = [t.lfo_model.state_dict() for t in tasks.values()]
+        same_ext = ext[0].keys() == ext[1].keys() and all(torch.equal(ext[0][k], ext[1][k]) for k in ext[0])
+        reset_launch_counts()
+        batch = _variant_batch("reference", 7100, BATCH, N_SAMPLES, "cuda")
+        count("stage 2 batch", {"flanger": 1})
+        # K1 again on the arguments the render gave it (every row a flanger): the path's wet, bit for bit
+        k1_call = k1_args(batch, stage2_render_cfg().max_delay_samples)
+        k1_outs = [fxk.flanger(*k1_call).cpu()]
+        if not torch.equal(k1_outs[0], batch["wet"].cpu()):
+            fail("reference: K1 on the render's arguments does not give the batch's wet")
+        k1_proc = start_plain_on_cpu("flanger_plain", [k1_call], tmp)
+        n_up = tasks["pt"].updates_per_batch
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        reset_launch_counts()
+        try:
+            losses = {label: t.train_step(batch)["loss"].item() for label, t in tasks.items()}
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        count("stage 2 train_steps", {"lstm_forward": 2, "lstm_train_forward": 2 * n_up, "lstm_backward": 2 * n_up})
+        params = [t.trained_model.state_dict() for t in tasks.values()]
+        same_params = all(torch.equal(v, params[1][k]) for k, v in params[0].items())
+        err3, err4, err5, _ = lstm_plain_errors(lk, *path_lstm_args(lk, tasks["pt"], batch)[:3])
+        out["stage2"] = dict(extractor_equal=same_ext, losses=losses, params_equal=same_params, k3=err3, k4=err4,
+                             k5=err5, s=time.perf_counter() - t0)
+        print(f"[reference (5)] {FIT_TBPTT_CONFIG} with lfo_model_weights_path {pts[R7].name} and {R7.name}: "
+              f"extractor state_dict bit for bit {same_ext}; one train_step at batch {BATCH} ({n_up} updates): "
+              f"losses {losses}, parameters bit for bit {same_params}; on the path's arguments K3 "
+              f"max_abs={err3:.3e} K4 max_abs={err4:.3e} (limit {KERNEL_TOL}), K5 max_rel={err5:.3e} (limit "
+              f"{GRAD_REL}); {out['stage2']['s']:.1f} s")
+        if not (same_ext and same_params and losses["pt"] == losses["npz"] and math.isfinite(losses["pt"])):
+            fail("reference: stage 2 from the .pt differs from the .npz path")
+        if not (err3 <= KERNEL_TOL and err4 <= KERNEL_TOL and err5 <= GRAD_REL):
+            fail(f"reference: K3/K4/K5 on stage 2's path against plain: {err3}, {err4}, {err5}")
+
+        # -- (6) the imported LSTM-64: its forward against the reference module, then streamed (K3)
+        t0 = time.perf_counter()
+        kind, sd = load_pt(str(pts[REF_LSTM]))
+        em = LSTMEffectModel(n_hidden=64)
+        em.load_state_dict(reference_state_dict(sd, em))
+        shipped = flax_lstm_to_state_dict(str(REF_LSTM))
+        same_w = kind == REFERENCE and all(torch.equal(v, shipped[k]) for k, v in em.state_dict().items())
+        em = em.to("cuda").eval()
+        ref = ReferenceLSTM().to("cuda").eval()
+        ref.load_state_dict(sd)
+        rng = np.random.default_rng(7200)
+        xs = torch.as_tensor((0.2 * rng.standard_normal((2, 1, REF_FORWARD_T))).astype(np.float32), device="cuda")
+        lat = torch.as_tensor(rng.uniform(0, 1, (2, 1, REF_FORWARD_T)).astype(np.float32), device="cuda")
+        reset_launch_counts()
+        with torch.no_grad():
+            y, _ = em(xs, lat, lstm_init_state(2, 64, "cuda"))
+        count("LSTM forward", {"lstm_forward": 1})
+        with torch.no_grad():
+            fwd_err = max_abs(y, ref(xs, lat))
+        w = [p.detach() for p in (em.w_ih, em.w_hh, em.b_gates, em.fc_kernel, em.fc_bias)]
+        k3_args = (torch.cat([lat, xs], 1), xs, *lstm_init_state(2, 64, "cuda"), *w)
+        k3_err = max(max_abs(a, b) for a, b in zip(lk.lstm_forward(*k3_args), lk.lstm_forward_plain(*k3_args)))
+        sm = StreamingEffectModel(em, n_channels=2, device="cuda")
+        audio = rng.uniform(-0.4, 0.4, (2, REF_STREAM_SAMPLES)).astype(np.float32)
+        sizes = []
+        while sum(sizes) < REF_STREAM_SAMPLES:
+            sizes.append(min(int(rng.integers(REF_STREAM_BUFFER[0], REF_STREAM_BUFFER[1] + 1)),
+                             REF_STREAM_SAMPLES - sum(sizes)))
+        reset_launch_counts()
+        y_full, _ = sm.process_np(sm.init_state(), audio)
+        y_chunked, _ = drive(sm, audio, sizes, {})
+        count("streaming", {"lstm_forward": 1 + len(sizes)})
+        stream_err = float(np.abs(y_chunked - y_full).max())
+        out["serving"] = dict(weights_equal=same_w, forward_err=fwd_err, k3_err=k3_err, buffers=len(sizes),
+                              stream_err=stream_err, s=time.perf_counter() - t0)
+        print(f"[reference (6)] {pts[REF_LSTM].name} imported (the shipped weights bit for bit: {same_w}); "
+              f"forward at (2, 1, {REF_FORWARD_T}) max_abs_err {fwd_err:.3e} against ReferenceLSTM (limit "
+              f"{KERNEL_TOL}); K3 on those arguments {k3_err:.3e} from plain; streamed stereo over "
+              f"{len(sizes)} buffers of {REF_STREAM_BUFFER[0]}-{REF_STREAM_BUFFER[1]}: max_abs {stream_err:.3e} "
+              f"from one call (limit {STREAM_ATOL}); {out['serving']['s']:.1f} s")
+        if not (same_w and fwd_err <= KERNEL_TOL and k3_err <= KERNEL_TOL and stream_err <= STREAM_ATOL):
+            fail(f"reference: the imported LSTM-64: weights {same_w}, forward {fwd_err}, K3 {k3_err}, "
+                 f"stream {stream_err}")
+
+        # -- K1 and K2 against their plain versions on the same inputs (CPU processes)
+        t0 = time.perf_counter()
+        out["k2_err"] = max(plain_errors(*proc, [o], "reference K2 (eval_lfo.yml)")[0]
+                            for proc, o in zip(k2_procs, k2_outs[:half]))
+        out["k1_err"] = plain_errors(*k1_proc, k1_outs, "reference K1 (stage 2 batch)")[0]
+        print(f"[reference plain] K1 at {tuple(k1_outs[0].shape)} max_abs_err {out['k1_err']:.3e}, K2 at "
+              f"{[tuple(o.shape) for o in k2_outs[:half]]} max_abs_err {out['k2_err']:.3e} (limit {KERNEL_TOL}; "
+              f"flanger_plain / phaser_plain on the CPU); waited {time.perf_counter() - t0:.1f} s")
+
+    errs = {"flanger": out["k1_err"], "phaser": out["k2_err"], "lstm_forward": max(err3, k3_err),
+            "lstm_train_forward": err4, "lstm_backward": err5}
+    for row in rows:
+        key = ROW_COUNTER.get(row["name"])
+        if key in out["launches"] and not row["name"].endswith("_h160"):
+            row["launches"] += out["launches"][key]
+            row["reference_launches"] = out["launches"][key]
+            row["reference_err"] = errs[key]
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[reference total] {out['s']:.1f} s; launches {out['launches']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2386,7 +2820,6 @@ def ddp_world1(rows: list, summary: dict) -> None:
     the same fits with no group in that process: losses and final weights
     bit for bit, the launches those of the fit phases; then the stage-1 and
     H 64 steps at batch 32 timed with and without the group."""
-    import tempfile
 
     from mod_extraction_tpu_torch.data.synthetic import fit_config, write_synthetic_corpus, write_wet_corpus
     from mod_extraction_tpu_torch.parallel.dist import run_ranks
@@ -2785,6 +3218,17 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     return dict(launches=total, step_ms=ms, val=val, train=metrics)
 
 
+def lstm_plain_errors(lk, k3_args, k4_args, k5_args) -> tuple:
+    """K3 and K4 (max-abs) and K5 (max-abs over each output's largest
+    magnitude) against their plain versions on a path's arguments, and K5's
+    (kernel, plain) outputs."""
+    err3 = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(*k3_args), lk.lstm_forward_plain(*k3_args)))
+    err4 = max(max_abs(x, y) for x, y in zip(lk.lstm_train_forward(*k4_args),
+                                              lk.lstm_forward_plain(*k4_args, save_states=True)))
+    got5, want5 = lk.lstm_backward(*k5_args), lk.lstm_backward_plain(*k5_args)
+    return err3, err4, max(rel_err(x, y) for x, y in zip(got5, want5)), (got5, want5)
+
+
 def check_in_dim4_kernels(lk, task, val_batch) -> dict:
     """K3, K4 and K5 on the param-model path's own arguments (in_dim 4: the
     audio, the LFO and the latent of 2), each against its plain version:
@@ -2794,11 +3238,7 @@ def check_in_dim4_kernels(lk, task, val_batch) -> dict:
     in_dim = k4_args[0].shape[1]
     if in_dim != 4:
         fail(f"variants param: the LSTM's input is {in_dim} wide, expected 4")
-    err3 = max(max_abs(x, y) for x, y in zip(lk.lstm_forward(*k3_args), lk.lstm_forward_plain(*k3_args)))
-    err4 = max(max_abs(x, y) for x, y in zip(lk.lstm_train_forward(*k4_args),
-                                              lk.lstm_forward_plain(*k4_args, save_states=True)))
-    got5, want5 = lk.lstm_backward(*k5_args), lk.lstm_backward_plain(*k5_args)
-    err5 = max(rel_err(x, y) for x, y in zip(got5, want5))
+    err3, err4, err5, (got5, want5) = lstm_plain_errors(lk, k3_args, k4_args, k5_args)
     err_lat = rel_err(got5[0][:, :3], want5[0][:, :3])
     b, _, t = k4_args[0].shape
     print(f"[variants param kernels, B={b} T={t} H={k4_args[5].shape[0]} in_dim={in_dim}, "
@@ -3094,7 +3534,6 @@ def run_prep(rows: list) -> dict:
     CPU."""
     import copy
     import os
-    import tempfile
 
     import yaml
 
@@ -3167,20 +3606,10 @@ def run_prep(rows: list) -> dict:
             # -- (c) the phaser warm-up delta, K2 on the card; its inputs and outputs recorded
             t0 = time.perf_counter()
             val = str(corpus / "val")
-            k2_calls, k2_outs, phaser = [], [], fxk.phaser
-
-            def recorded_phaser(*args, **kw):
-                wet = phaser(*args, **kw)
-                k2_calls.append(tuple(a.cpu() if torch.is_tensor(a) else a for a in args))
-                k2_outs.append(wet.cpu())
-                return wet
-
+            k2_calls, k2_outs = [], []
             reset_launch_counts()
-            fxk.phaser = recorded_phaser
-            try:
+            with recorded(fxk, "phaser", k2_calls, k2_outs):
                 l1 = warm.main(val, PREP_WARMUP_BATCH, "cuda")
-            finally:
-                fxk.phaser = phaser
             torch.cuda.synchronize()
             launches = launch_counts()
             procs.append(start_plain_on_cpu("phaser_plain", k2_calls, tmp))
@@ -3336,42 +3765,46 @@ def main() -> int:
         libs = list(pool.map(lambda src: cuda_build.build(src, verbose=True), sources))
     print(f"[build] {' '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    rows = run_stage1(fxk, rng)
-    print(f"[stage 1 total] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rows += run_stage1_kernel_wgrad(fxk, ck, rng)
-    print(f"[stage 1 (wgrad=pallas) total] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    phases = {}
+
+    def timed(name, fn, *args):
+        """`fn(*args)`, its seconds kept in `phases` (printed at the end)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        return out
+
+    # stage 2's CPU side, in its own process from here on
+    tmp = tempfile.TemporaryDirectory()
+    stage2_cpu = start_stage2_cpu(tmp.name)
+    atexit.register(lambda: stage2_cpu[0].poll() is None and (stage2_cpu[0].kill(), stage2_cpu[0].wait()))
+    rows = timed("stage 1", run_stage1, fxk, rng)
+    rows += timed("stage 1 (wgrad=pallas)", run_stage1_kernel_wgrad, fxk, ck, rng)
     h64 = {}
-    rows += run_stage2(fxk, lk, rng, rows[0], h64)
-    print(f"[stage 2 total] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    h160_rows, k1_h160 = run_stage2_h160(fxk, lk, rng, h64)
+    rows += timed("stage 2", run_stage2, fxk, lk, rng, rows[0], h64, stage2_cpu)
+    tmp.cleanup()
+    print(f"[stage 2] its CPU side took {h64['cpu_s']:.1f} s in a process beside the card; waited "
+          f"{h64['cpu_waited_s']:.1f} s: the cut saved {h64['cpu_saved_s']:.1f} s")
+    h160_rows, k1_h160 = timed("stage 2 H 160", run_stage2_h160, fxk, lk, rng, h64)
     rows += h160_rows
     rows[0]["d1764_h160_path_launches"] = k1_h160
-    print(f"[stage 2 H 160 total] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serving = run_serving(lk, rng)
+    serving = timed("serving", run_serving, lk, rng)
     k3_row = next(r for r in rows if r["name"] == "lstm_effect_model")
     k3_row["launches"] += serving["launches"][64]
     k3_row["serving"] = {k: v for k, v in serving.items() if k != "h160"}
     k3_h160 = next(r for r in rows if r["name"] == "lstm_effect_model_h160")
     k3_h160["launches"] += serving["launches"][160]
     k3_h160["serving"] = serving["h160"]
-    print(f"[serving total] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    bench_lines = run_bench()
-    print(f"[bench_torch total] {time.perf_counter() - t0:.1f} s")
+    bench_lines = timed("bench_torch", run_bench)
 
     counters = (fxk, ck, lk)
     none = {k: 0 for c in counters for k in c.LAUNCHES}
     n_batches = FIT_TRAIN_BATCHES + FIT_VAL_BATCHES
     fits = {
-        "fit stage 1": run_fit(
+        "fit stage 1": timed("fit stage 1", run_fit,
             "fit stage 1", FIT_LFO_CONFIG, counters,
             lambda task: dict(none, flanger=n_batches, phaser=n_batches), bench_lines[0], rows),
-        "fit stage 2": run_fit(
+        "fit stage 2": timed("fit stage 2", run_fit,
             "fit stage 2", FIT_TBPTT_CONFIG, counters,
             lambda task: dict(none, lstm_forward=n_batches,
                               lstm_train_forward=FIT_TRAIN_BATCHES * task.updates_per_batch,
@@ -3379,11 +3812,15 @@ def main() -> int:
             bench_lines[1], rows),
     }
     print("[fits] " + json.dumps(fits))
-    print("[eval] " + json.dumps(run_eval(fxk, lk, rows)))
-    print("[ddp] " + json.dumps(run_ddp(rows)))
-    print("[variants] " + json.dumps(run_variants(lk, rows)))
-    print("[prep] " + json.dumps(run_prep(rows)))
+    print("[eval] " + json.dumps(timed("eval", run_eval, fxk, lk, rows)))
+    print("[reference] " + json.dumps(timed("reference", run_reference, fxk, lk, rows)))
+    print("[ddp] " + json.dumps(timed("ddp", run_ddp, rows)))
+    print("[variants] " + json.dumps(timed("variants", run_variants, lk, rows)))
+    print("[prep] " + json.dumps(timed("prep", run_prep, rows)))
 
+    print("[phases, s] " + json.dumps({k: round(v, 1) for k, v in phases.items()})
+          + f"; the stage-2 cut saved {h64['cpu_saved_s']:.1f} s, the reference phase took "
+          f"{phases['reference']:.1f} s")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -23,6 +23,13 @@ Kept from the JAX package:
   (what `scripts/run_eval_grid_torch.py` calls),
 * `custom.log_media` (`utils/plotting.py`, matplotlib imported only then)
   every `custom.media_every_n_epochs` epochs (default 10),
+* bare weights as the JAX CLI reads them: a `.npz` in the shipped layout,
+  or the reference's `.pt` state_dict of a Spectral2DCNN as
+  `lfo_model_weights_path`, stage 1's `custom.init_weights_path` and a
+  stage-1 `ckpt_path` (`models/torch_port.py`; read with
+  `weights_only=True`, and told apart from a checkpoint of the port by its
+  content); where the JAX CLI refuses a `.pt`, a `ValueError` names
+  `scripts/import_reference_weights_torch.py`,
 * data parallelism as the JAX package takes every visible device: under
   `torchrun --nproc_per_node N` each entry point joins the process group
   from the environment and trains on its rank's share of the config's
@@ -58,6 +65,7 @@ from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
 from mod_extraction_tpu_torch.models.tcn import SpectralDSTCN, SpectralTCN
+from mod_extraction_tpu_torch.models.torch_port import CHECKPOINT, REFERENCE, load_pt, reference_state_dict
 from mod_extraction_tpu_torch.parallel.dist import check_replicated, process_group
 from mod_extraction_tpu_torch.paths import CONFIGS_DIR, ROOT_DIR, ensure_dir
 from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask, adamw
@@ -285,16 +293,19 @@ def build_optimizer(cfg: Optional[Dict[str, Any]]) -> Callable:
 
 
 def _load_lfo_weights(model, weights_path: str) -> Dict[str, torch.Tensor]:
-    """A bare-weights `.npz` as the state_dict of `model` (a Spectral2DCNN, a
-    TCN model or an LSTMEffectModel)."""
+    """Bare weights as the state_dict of `model`, as the JAX CLI reads them:
+    an `.npz` in the shipped layout of a Spectral2DCNN, a TCN model or an
+    LSTMEffectModel, or a reference `.pt` state_dict of a Spectral2DCNN
+    (`models/torch_port.py`; the layer count is the model's)."""
     if weights_path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{weights_path}: a .pt file is not read as bare weights. A checkpoint of the "
-            "port (`<out>/<run>_ckpts/best.pt` or `last.pt`) converts to the .npz this key "
-            "takes with `python scripts/extract_torch_weights.py <ckpt.pt> <out.npz> "
-            "[model|effect_model|lfo_model]`; the reference's .pt checkpoints are not read "
-            "by the port (models/torch_port.py is not queued, ROADMAP.md queue 1)"
-        )
+        kind, sd = load_pt(_repo_path(weights_path))
+        if kind == CHECKPOINT:
+            raise NotImplementedError(
+                f"{weights_path} is a checkpoint of the port (`<out>/<run>_ckpts/best.pt` or `last.pt`), "
+                "not bare weights: it converts to the .npz this key takes with `python "
+                "scripts/extract_torch_weights.py <ckpt.pt> <out.npz> [model|effect_model|lfo_model]`"
+            )
+        return _reference_weights(model, sd, weights_path)
     if not weights_path.endswith(".npz"):
         raise ValueError(f"unsupported weights format: {weights_path}")
     path = _repo_path(weights_path)
@@ -308,6 +319,19 @@ def _load_lfo_weights(model, weights_path: str) -> Dict[str, torch.Tensor]:
         f"{weights_path}: a bare .npz holds one model; a TBPTT task that trains a param model "
         "or its extractor restores from a checkpoint of the port (last.pt / best.pt)"
     )
+
+
+def _reference_weights(model, sd: Dict[str, torch.Tensor], weights_path: str) -> Dict[str, torch.Tensor]:
+    """A reference state_dict as the state_dict of `model`, which must be a
+    Spectral2DCNN: the JAX CLI ports a reference `.pt` as one whatever the
+    model, and fails on any other."""
+    if not isinstance(model, Spectral2DCNN):
+        raise ValueError(
+            f"{weights_path}: a reference .pt is read as a Spectral2DCNN, not a {type(model).__name__}; "
+            "convert other reference weights first with `python scripts/import_reference_weights_torch.py "
+            "<in.pt> <out.npz> [lstm|2dcnn]`"
+        )
+    return reference_state_dict(sd, model)
 
 
 def build_data_module(
@@ -476,13 +500,21 @@ def _fit(config, out_dir, resume, max_epochs, device, sync_copies, profile_steps
     run = RunConfig(_load_config(config), device)
     custom = run.raw.get("custom") or {}
     # `custom.init_weights_path`: warm-start a fresh run from a bare
-    # models/*.npz export; a resumable `last` checkpoint wins
+    # models/*.npz export (or, for stage 1, a reference .pt); a resumable
+    # `last` checkpoint wins
     warm_start = None
     init_wp = custom.get("init_weights_path")
     if init_wp and getattr(run.task, "multi_params", False):
         # as the JAX CLI: a bare export holds one model, and a TBPTT task that
         # also trains a param model or its extractor resumes from checkpoints only
         log.warning("custom.init_weights_path ignored: %s trains several parts", type(run.task).__name__)
+    elif init_wp and isinstance(run.task, TBPTTEffectModelingTask) and not init_wp.endswith(".npz"):
+        raise ValueError(
+            "TBPTT custom.init_weights_path must be a .npz effect-model export "
+            f"(got {init_wp}); convert reference .pt weights with "
+            "scripts/import_reference_weights_torch.py first (a checkpoint of the port: "
+            "scripts/extract_torch_weights.py)"
+        )
     elif init_wp and isinstance(run.task, (LFOExtractionTask, TBPTTEffectModelingTask)):
         # loaded only if no `last` checkpoint is resumed
         warm_start = lambda: _load_lfo_weights(run.task.trained_model, init_wp)  # noqa: E731
@@ -518,16 +550,26 @@ def _fit(config, out_dir, resume, max_epochs, device, sync_copies, profile_steps
 
 def _load_eval_state(run: RunConfig, trainer: Trainer, ckpt_path: Optional[str]) -> None:
     """Load `ckpt_path` into the task for validation: a bare-weights `.npz`
-    of its model, or a checkpoint of the port (`last`, `best`, or the path
-    of a `.pt` state file)."""
+    of its model, a reference `.pt` state_dict of a stage-1 extractor, or a
+    checkpoint of the port (`last`, `best`, or the path of a `.pt` state
+    file)."""
     if not getattr(run.task, "has_params", True) or not ckpt_path:
         return  # the RandomLFO baseline has nothing to load
     if ckpt_path.endswith((".npz", ".pt")) and not os.path.isfile(_repo_path(ckpt_path)):
         log.warning("ckpt_path %s not found; validating with random init", ckpt_path)
         return
+    kind, sd = load_pt(_repo_path(ckpt_path)) if ckpt_path.endswith(".pt") else (None, None)
+    if kind == REFERENCE and isinstance(run.task, TBPTTEffectModelingTask):
+        raise ValueError(
+            f"ckpt_path {ckpt_path}: a reference .pt is read as a stage-1 extractor; convert a "
+            "reference LSTM to the .npz a TBPTT task validates with `python "
+            "scripts/import_reference_weights_torch.py <in.pt> <out.npz> lstm`"
+        )
+    model = run.task.trained_model
     if ckpt_path.endswith(".npz"):
-        model = run.task.trained_model
         model.load_state_dict(_load_lfo_weights(model, ckpt_path))
+    elif kind == REFERENCE:
+        model.load_state_dict(_reference_weights(model, sd, ckpt_path))
     elif trainer.ckpts.restore(ckpt_path, run.task) is None:
         log.warning("checkpoint %s not found; validating with random init", ckpt_path)
     check_replicated(run.task.trained_model.parameters())

@@ -240,13 +240,13 @@ DEFERRED = {
                        "queue 1 item 3"),
     # ported since: it raises only where matplotlib is missing, naming it
     "log_media": (lambda: _set(_lfo_cfg(), ("custom", "log_media"), True), "matplotlib"),
-    "pt_weights": (lambda: _set(_tbptt_cfg(), ("model", "init_args", "lfo_model_weights_path"), "models/x.pt"),
-                   "not queued"),
+    # ported since: the test rewrites the config's r7 extractor as a reference-layout .pt
+    "pt_weights": (_tbptt_cfg, "models/torch_port.py"),
 }
 
 
 # ported since: each builds what the JAX `RunConfig` builds
-PORTED = {"spectral_tcn", "spectral_dstcn", "param_model", "unfrozen_extractor", "stretch_smooth"}
+PORTED = {"spectral_tcn", "spectral_dstcn", "param_model", "unfrozen_extractor", "stretch_smooth", "pt_weights"}
 
 
 def _shapes(sd) -> dict:
@@ -291,6 +291,10 @@ def _assert_builds_as_jax(cfg):
     convert = {"effect": flax_lstm_to_state_dict, "param": tcn_flax_to_state_dict, "lfo": flax_to_state_dict}
     if not task.multi_params:
         assert _shapes(task.trained_model.state_dict()) == _jax_shapes(flax_lstm_to_state_dict, params)
+        if jtask.lfo_params is not None:  # the frozen extractor: JAX's weights, bit for bit
+            want = flax_to_state_dict(jtask.lfo_params["params"])
+            got = task.lfo_model.state_dict()
+            assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
         return
     assert set(params) == set(task.trained_model.keys())
     for part, tree in params.items():
@@ -301,13 +305,22 @@ def _assert_builds_as_jax(cfg):
 
 
 @pytest.mark.parametrize("name", sorted(DEFERRED))
-def test_deferred_knobs_raise(name, monkeypatch):
+def test_deferred_knobs_raise(name, monkeypatch, tmp_path):
     """The knobs the port deferred: those ported since build as the JAX
-    package's do; `log_media` raises only where matplotlib is missing; a
-    `.pt` extractor is not read (not queued)."""
+    package's do (a reference-layout `.pt` as `lfo_model_weights_path`
+    gives JAX's extractor bit for bit); `log_media` raises only where
+    matplotlib is missing."""
     make, queue_item = DEFERRED[name]
     if name in PORTED:
-        _assert_builds_as_jax(make())
+        cfg = make()
+        if name == "pt_weights":
+            from chip_smoke import reference_layout
+
+            args = cfg["model"]["init_args"]
+            pt = str(tmp_path / "r7.pt")
+            torch.save(reference_layout(tcli._repo_path(args["lfo_model_weights_path"])), pt)
+            args["lfo_model_weights_path"] = pt
+        _assert_builds_as_jax(cfg)
         return
     if name == "log_media":
         import mod_extraction_tpu_torch.utils as utils
@@ -320,8 +333,7 @@ def test_deferred_knobs_raise(name, monkeypatch):
         with pytest.raises(ImportError, match=queue_item):
             tcli._media_callback_for(run)
         return
-    with pytest.raises(NotImplementedError, match=queue_item):
-        tcli.RunConfig(make(), device="cpu")
+    raise AssertionError(f"{name} is neither ported nor log_media")
 
 
 def test_param_model_alone_names_the_tbptt_variants():

@@ -51,7 +51,8 @@ PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "scripts/export_torch_models.
                 "scripts/make_sim_chorus_gt_control_torch.py", "scripts/resample_torch.py",
                 "scripts/fit_ddp_torch.py", "scripts/make_synthetic_corpus_torch.py",
                 "scripts/split_datasets_torch.py", "scripts/generate_preproc_datasets_torch.py",
-                "scripts/measure_phaser_warmup_delta_torch.py", "scripts/write_model_cards_torch.py")
+                "scripts/measure_phaser_warmup_delta_torch.py", "scripts/write_model_cards_torch.py",
+                "scripts/import_reference_weights_torch.py")
 # the training entry point's modules (config/CLI, data pipeline, Trainer)
 ENTRY_MODULES = ("cli", "native", "train.loop", "data.wav", "data.datasets", "data.loader",
                  "data.corpus", "data.modules", "evaluation.tables")
@@ -62,7 +63,7 @@ DP_MEDIA_RESAMPLE_MODULES = ("parallel.dist", "parallel.dryrun", "utils.plotting
 def test_no_jax_imports_in_package_or_chip_smoke():
     files = sorted(PKG.rglob("*.py")) + [ROOT / f for f in PORT_SCRIPTS]
     assert len(files) > 15
-    for new in ("export/streaming.py", "paths.py", "train/checkpoints.py", "utils/timing.py"):
+    for new in ("export/streaming.py", "paths.py", "train/checkpoints.py", "utils/timing.py", "models/torch_port.py"):
         assert PKG / new in files
     for new in ENTRY_MODULES + DP_MEDIA_RESAMPLE_MODULES:
         assert PKG / (new.replace(".", "/") + ".py") in files
@@ -86,7 +87,7 @@ def test_package_imports_with_jax_blocked():
     ]
     assert "mod_extraction_tpu_torch.train.lfo_task" in mods
     for new in ("ops.conv_kernels", "ops.lfo", "models.random_lfo", "export.streaming", "paths",
-                "train.checkpoints", "utils.timing") + ENTRY_MODULES + DP_MEDIA_RESAMPLE_MODULES:
+                "train.checkpoints", "utils.timing", "models.torch_port") + ENTRY_MODULES + DP_MEDIA_RESAMPLE_MODULES:
         assert f"mod_extraction_tpu_torch.{new}" in mods
     scripts = [str(ROOT / f) for f in PORT_SCRIPTS if f != "chip_smoke.py"]
     code = (
