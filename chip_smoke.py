@@ -91,9 +91,13 @@ points at full width:
   (b) two ranks sharing the card (gloo over CUDA tensors), 16 rows each of
   a batch of 32: the stage-1 step bit for bit the one-process step over
   the same two halves (its loss also within 1e-5 of the full-batch step),
-  the H 64 and H 160 TBPTT steps within the JAX oracle's tolerances of the
-  full-batch step, every rank's launches those of a whole step; (c) the
-  resampler, card against CPU;
+  the stage-1 step with `sub_batch_size` 8 (each rank 4 rows of each of the
+  4 sub-batches: K1 and K2 4 times a rank) bit for bit the one-process step
+  over the same shares, its loss within 1e-5 of the one-process sub-batched
+  step and, in float32 convs, its gradients within 2e-2 of that step's,
+  the H 64 and H 160 TBPTT steps within the JAX oracle's
+  tolerances of the full-batch step, every rank's launches those of a whole
+  step; (c) the resampler, card against CPU;
 * `variants`, the TCN extractor and the TBPTT variants through
   `cli.RunConfig` on shipped configs changed in memory: (a) the SpectralTCN
   extractor (5 x 96 channels, kernel 13, dilations 1-16) as stage 1 on
@@ -242,9 +246,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return max_abs(a, b) / max(b.abs().max().item(), 1e-30)
 
 
-def check_kernels_small(fxk, rng) -> None:
+def check_kernels_small(fxk, rng, tmp: Path) -> tuple:
     """K1 in the flanger (d = 485) and chorus (d = 1764) regimes and K2, at
-    b*c = 48 recurrences (48 blocks) and T = 6000."""
+    b*c = 48 recurrences (48 blocks) and T = 6000; then `check_phaser_scan`,
+    whose pending CPU check it returns."""
     dev = "cuda"
     b, c, t = 24, 2, 6000
 
@@ -267,7 +272,7 @@ def check_kernels_small(fxk, rng) -> None:
     print(f"[K2 phaser n={b * c} T={t}] max_abs_err={err:.3e}")
     if not err <= KERNEL_TOL:
         fail(f"K2 disagrees with its plain version: {err}")
-    check_phaser_scan(fxk, rng)
+    return check_phaser_scan(fxk, rng, tmp)
 
 
 # K1 at the edges of its steps: delay lines shorter than a warp and the two
@@ -356,11 +361,13 @@ def k1_path_batches() -> list:
     ]
 
 
-def check_k1_path(fxk, args, label: str, plain: bool = True) -> dict:
-    """K1 at a path's shape: the stepped kernel against the walk (bits),
-    the plain version (KERNEL_TOL) and the plain step counts; the two
-    kernels timed in turns (walk, steps, steps, walk); the worst row's
-    steps and the cycles a step at the SM clock under load."""
+def check_k1_path(fxk, args, label: str) -> dict:
+    """K1 at a path's shape: the stepped kernel against the walk (bits) and
+    the plain step counts; the two kernels timed in turns (walk, steps,
+    steps, walk); the worst row's steps and the cycles a step at the SM
+    clock under load.  The output (`out`, on the CPU) is held against the
+    plain version by the caller, in a CPU process beside the card
+    (`start_plain_on_cpu`)."""
     x, delay, d = args[0], args[1], args[-1]
     n_rows, t_len = x.shape[0] * x.shape[1], x.shape[2]
     out, stats = fxk.flanger(*args, step_counts=True)
@@ -368,33 +375,24 @@ def check_k1_path(fxk, args, label: str, plain: bool = True) -> dict:
     steps = stats[:, 0].cpu()
     want = fxk.flanger_step_counts(delay, d, x.shape)
     res = dict(steps_max=int(steps.max()), steps_median=float(steps.float().median()),
-               steps_total=int(steps.sum()), waits=int(stats[:, 1].sum()), err=None, plain_ms=None,
+               steps_total=int(steps.sum()), waits=int(stats[:, 1].sum()), out=out.cpu(),
                bound_ms=4 * (3 * n_rows * t_len + 3 * n_rows) / HBM_BYTES_S * 1e3)
-    if plain:
-        ref = []
-        res["plain_ms"] = cuda_ms(lambda: ref.append(fxk.flanger_plain(*args)), 1)
-        res["err"] = max_abs(out, ref[0])
-        res["plain_bits"] = torch.equal(out, ref[0])
     turns = {True: [], False: []}
     for walk in (True, False, False, True):
         turns[walk].append(cuda_ms_median(lambda: fxk.flanger(*args, walk=walk)))
     res["ms"], res["walk_ms"] = float(np.mean(turns[False])), float(np.mean(turns[True]))
     res["mhz"] = sm_clock_mhz(lambda: fxk.flanger(*args))
     res["cycles_per_step"] = res["ms"] * 1e3 * res["mhz"] / res["steps_max"]
-    print(f"[K1 {label}] walk's bits: {same}; steps = plain count: {torch.equal(steps, want)}; "
-          f"max_abs_err={res['err'] if res['err'] is None else format(res['err'], '.3e')} "
-          f"(plain version's bits: {res.get('plain_bits')}); steps worst row {res['steps_max']} median "
-          f"{res['steps_median']:.0f} total {res['steps_total']} (walk: {t_len} a row); walker waits "
-          f"{res['waits']}; in turns ms={res['ms']:.4f} walk_ms={res['walk_ms']:.4f} "
+    print(f"[K1 {label}] walk's bits: {same}; steps = plain count: {torch.equal(steps, want)}; steps worst "
+          f"row {res['steps_max']} median {res['steps_median']:.0f} total {res['steps_total']} (walk: {t_len} a "
+          f"row); walker waits {res['waits']}; in turns ms={res['ms']:.4f} walk_ms={res['walk_ms']:.4f} "
           f"({res['walk_ms'] / res['ms']:.1f}x); {res['cycles_per_step']:.1f} cycles a step at "
-          f"{res['mhz']:.0f} MHz; plain_ms={res['plain_ms']}")
+          f"{res['mhz']:.0f} MHz")
     if not same:
         fail(f"K1 {label}: the steps do not give the walk's bits")
     if not torch.equal(steps, want):
         fail(f"K1 {label}: steps differ from the plain count in rows "
              f"{torch.nonzero(steps != want).flatten().tolist()}")
-    if plain and not res["err"] <= KERNEL_TOL:
-        fail(f"K1 {label} disagrees with its plain version: {res['err']}")
     return res
 
 
@@ -454,10 +452,12 @@ def phaser_scan_numerics(fxk, args, n_stages: int = 6, chunk: int | None = None,
     return max_p, z.abs().max().item(), float(np.abs(z.double().cpu().numpy() - z64).max())
 
 
-def check_phaser_scan(fxk, rng) -> None:
+def check_phaser_scan(fxk, rng, tmp: Path) -> tuple:
     """K2 against its plain version at the edges of the scan (T, stages),
     with feedback 0.7 and g over [0.001, 32], then at the full (32, 88200)
-    shape there, with the scan's own numbers."""
+    shape there, with the scan's own numbers; the plain version of the full
+    shape runs in a CPU process beside the card, returned as (label, the
+    process, its file, the kernel's output) for `plain_results`."""
     worst = 0.0
     for n_stages in PHASER_EDGE_STAGES:
         for t in PHASER_EDGE_T:
@@ -469,14 +469,16 @@ def check_phaser_scan(fxk, rng) -> None:
     print(f"[K2 edges: stages {PHASER_EDGE_STAGES} x T {PHASER_EDGE_T}, fb 0.7, g 0.001-32, chunk "
           f"{fxk.PHASER_CHUNK}] worst max_abs_err={worst:.3e}")
     args = phaser_extremes(rng, BATCH, N_SAMPLES)
-    err = max_abs(fxk.phaser(*args, 6), fxk.phaser_plain(*args, 6))
+    label = f"K2 n={BATCH} T={N_SAMPLES} fb 0.7, g 0.001-32"
+    (tmp / "k2_extremes").mkdir()
+    pending = (label, *start_plain_on_cpu("phaser_plain", [(*args, 6)], tmp / "k2_extremes"),
+               [fxk.phaser(*args, 6).cpu()])
     max_p, max_z, z_err = phaser_scan_numerics(fxk, args)
-    print(f"[K2 n={BATCH} T={N_SAMPLES} fb 0.7, g 0.001-32] max_abs_err={err:.3e} max|P_c|={max_p:.4f} "
-          f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
-    if not err <= KERNEL_TOL:
-        fail(f"K2 at full shape with fb 0.7 and g 0.001-32 disagrees with its plain version: {err}")
+    print(f"[{label}] max|P_c|={max_p:.4f} max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}; against its "
+          f"plain version in a CPU process beside the card")
     if not z_err <= KERNEL_TOL:
         fail(f"K2's chunk entry states are {z_err} from a float64 walk")
+    return pending
 
 
 def profile_train_step(task, batch, label: str, top: int = 15) -> tuple:
@@ -512,6 +514,14 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_o
 
 
 def run_stage1(fxk, rng) -> list:
+    """Stage 1's checks and main path.  The plain K1 / K2 loops at (32,
+    88200) run in CPU processes beside the card's work (the kernels' rows
+    carry their CPU ms as `plain_ms`, `plain_device` "cpu")."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _run_stage1(fxk, rng, Path(tmp))
+
+
+def _run_stage1(fxk, rng, tmp: Path) -> list:
     from mod_extraction_tpu_torch.data.synthetic import (
         batch_to_torch,
         flanger_max_delay_samples,
@@ -523,18 +533,32 @@ def run_stage1(fxk, rng) -> list:
     from mod_extraction_tpu_torch.train.render import RenderConfig, phaser_params
 
     # -- kernels against their plain versions, small regimes
-    check_kernels_small(fxk, rng)
+    pending = [check_kernels_small(fxk, rng, tmp)]
 
-    # -- the main path, counted
+    # -- the main path's batches; K1 and K2's plain versions on the last
+    #    one start on the CPU now
     d = flanger_max_delay_samples(30.0, 10.0, SR)  # 1764: the interwoven line
     cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2, 3), max_delay_samples=d)
-    model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
-    task = LFOExtractionTask(model, cfg, loss_dict=LOSSES, device="cuda", seed=0)
     val_batch = batch_to_torch(make_interwoven_batch(1000, BATCH, N_SAMPLES, SR))
     train_batches = [
         batch_to_torch(make_interwoven_batch(s, BATCH, N_SAMPLES, SR))
         for s in range(N_TRAIN_STEPS + 1)
     ]
+    tb = train_batches[-1]
+    dry, fx = tb["dry"], tb["fx"]
+    n_lanes, t_len = dry.shape[0] * dry.shape[1], dry.shape[2]
+    k1_path = k1_args(tb, d)
+    pp = phaser_params(fx, SR)
+    g, _ = phaser_coefficients(N_SAMPLES, SR, pp["rate_hz"], pp["depth"],
+                               pp["centre_frequency_hz"], pp["phase"])
+    ph_args = (dry, g[:, None, :], pp["feedback"][:, None, None], pp["mix"][:, None, None], 6)
+    for name, args in (("flanger_plain", k1_path), ("phaser_plain", ph_args)):
+        (tmp / name).mkdir()
+        pending.append((name, *start_plain_on_cpu(name, [args], tmp / name)))
+
+    # -- the main path, counted
+    model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
+    task = LFOExtractionTask(model, cfg, loss_dict=LOSSES, device="cuda", seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -585,41 +609,39 @@ def run_stage1(fxk, rng) -> list:
         f"{k}={ref['cuda'][k]:.6f}/{ref['cpu'][k]:.6f}" for k in sorted(ref["cpu"])))
 
     # -- each kernel at the main path's shapes (the last train batch)
-    tb = train_batches[-1]
-    dry, fx = tb["dry"], tb["fx"]
-    n_lanes, t_len = dry.shape[0] * dry.shape[1], dry.shape[2]
-    k1 = check_k1_path(fxk, k1_args(tb, d), f"stage 1 batch, interwoven seed {N_TRAIN_STEPS}, d {d}")
+    k1 = check_k1_path(fxk, k1_path, f"stage 1 batch, interwoven seed {N_TRAIN_STEPS}, d {d}")
+    out = fxk.phaser(*ph_args)
+    ms = cuda_ms_median(lambda: fxk.phaser(*ph_args))
+    max_p, max_z, z_err = phaser_scan_numerics(fxk, ph_args[:4])
+    print(f"[phaser_allpass scan on the path's data, chunk {fxk.PHASER_CHUNK}] max|P_c|={max_p:.4f} "
+          f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
+    # -- where one full-width train step spends the card's time
+    profile_train_step(task, train_batches[1], "stage 1")
+
+    # -- the plain versions' outputs from their CPU processes
+    t0 = time.perf_counter()
+    label, proc, dst, outs = pending[0]
+    (err_x,), _ = plain_results(proc, dst, outs, label)
+    print(f"[{label}] max_abs_err={err_x:.3e} against its plain version (CPU)")
+    (k1["err"],), (k1["plain_ms"],) = plain_results(*pending[1][1:3], [k1["out"]], "K1 on stage 1's path")
+    (err,), (plain_ms,) = plain_results(*pending[2][1:3], [out.cpu()], "K2 on stage 1's path")
+    print(f"[stage 1 plain versions on the CPU] waited {time.perf_counter() - t0:.1f} s for them; K1 "
+          f"max_abs_err={k1['err']:.3e} plain_ms={k1['plain_ms']:.1f}; K2 max_abs_err={err:.3e} "
+          f"plain_ms={plain_ms:.1f} (one CPU thread each)")
+    print(f"[phaser_allpass n={n_lanes} T={t_len}] max_abs_err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f} (CPU)")
     k1_row = kernel_row(
         "flanger_delay_line", "mod_extraction_tpu_torch/csrc/fx.cu",
         "mod_extraction_tpu/ops/pallas_fx.py:45", launches["flanger"], k1["err"], k1["ms"],
         k1["plain_ms"], 4 * (3 * n_lanes * t_len + 3 * n_lanes), 16 * n_lanes * t_len, None,
     )
-    k1_row.update({k: k1[k] for k in K1_EXTRA})
-    pp = phaser_params(fx, SR)
-    g, _ = phaser_coefficients(N_SAMPLES, SR, pp["rate_hz"], pp["depth"],
-                               pp["centre_frequency_hz"], pp["phase"])
-    ph_args = (dry, g[:, None, :], pp["feedback"][:, None, None], pp["mix"][:, None, None], 6)
-    out = fxk.phaser(*ph_args)
-    ms = cuda_ms_median(lambda: fxk.phaser(*ph_args))
-    ref_out = []
-    plain_ms = cuda_ms(lambda: ref_out.append(fxk.phaser_plain(*ph_args)), 1)
-    err = max_abs(out, ref_out[0])
-    print(f"[phaser_allpass n={n_lanes} T={t_len}] max_abs_err={err:.3e} ms={ms:.3f} plain_ms={plain_ms:.1f}")
-    if not err <= KERNEL_TOL:
-        fail(f"phaser_allpass at the main-path shapes disagrees with its plain version: {err}")
-    max_p, max_z, z_err = phaser_scan_numerics(fxk, ph_args[:4])
-    print(f"[phaser_allpass scan on the path's data, chunk {fxk.PHASER_CHUNK}] max|P_c|={max_p:.4f} "
-          f"max|z_c|={max_z:.4f} z_c vs float64 walk {z_err:.3e}")
+    k1_row.update({k: k1[k] for k in K1_EXTRA}, plain_device="cpu")
     k2_row = kernel_row(
         "phaser_allpass", "mod_extraction_tpu_torch/csrc/fx.cu", "mod_extraction_tpu/ops/pallas_fx.py:156",
         launches["phaser"], err, ms, plain_ms, 4 * (3 * n_lanes * t_len + 2 * n_lanes),
         43 * n_lanes * t_len, None,
     )
-    k2_row.update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err)
-    rows = [k1_row, k2_row]
-    # -- where one full-width train step spends the card's time
-    profile_train_step(task, train_batches[1], "stage 1")
-    return rows
+    k2_row.update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err, plain_device="cpu")
+    return [k1_row, k2_row]
 
 
 # ---------------------------------------------------------------------------
@@ -1148,24 +1170,43 @@ def stage2_cpu_reference(out_path: str) -> None:
     torch.save(dict(gt=gt, ext=ext, ext_val=ext_val, s=time.perf_counter() - t0), out_path)
 
 
-def start_stage2_cpu(tmp: str) -> tuple:
-    """Starts `stage2_cpu_reference` in a CPU process (no card visible);
-    returns (the process, the file it writes, its start time)."""
+def start_cpu_side(fn: str, tmp: str) -> tuple:
+    """Starts `chip_smoke.<fn>(out_path)`, the CPU side of a card-vs-CPU
+    check (`stage2_cpu_reference`, `h160_cpu_reference`), in a CPU process
+    (no card visible); returns (the process, the file it writes, its start
+    time)."""
     import os
 
-    out = str(Path(tmp) / "stage2_cpu.pt")
+    out = str(Path(tmp) / f"{fn}.pt")
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-            f"chip_smoke.stage2_cpu_reference({out!r})")
+            f"chip_smoke.{fn}({out!r})")
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     return proc, out, time.perf_counter()
 
 
+def cpu_side_result(cpu_ref: tuple, label: str, summary: dict) -> dict:
+    """What `start_cpu_side`'s process wrote, once it ends; its seconds,
+    the wait for it and the seconds the card saved go to `summary`."""
+    proc, path, started = cpu_ref
+    t0 = time.perf_counter()
+    _, stderr = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label} on the CPU: rc {proc.returncode}: {stderr[-3000:]}")
+    res = torch.load(path, weights_only=False)
+    summary.update(cpu_s=res["s"], cpu_waited_s=waited, cpu_saved_s=res["s"] - waited)
+    print(f"[{label} CPU side] its process took {res['s']:.1f} s beside the card (started {t0 - started:.1f} s "
+          f"before it was asked for); waited {waited:.1f} s: the cut saved {res['s'] - waited:.1f} s")
+    return res
+
+
 def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> list:
     """Stage 2's checks and main path; adds K1 on stage 2's batch (d 485) to
     `k1_row` under "d485", and the step's mean, profiled wall and busy ms and
-    the CPU side's seconds to `summary`.  `cpu_ref`: `start_stage2_cpu`'s
-    process, collected for the card-vs-CPU checks."""
+    the CPU side's seconds to `summary`.  `cpu_ref`: `start_cpu_side`'s
+    process of `stage2_cpu_reference`, collected for the card-vs-CPU
+    checks."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
     from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
     from mod_extraction_tpu_torch.ops.corners import smoothen
@@ -1260,18 +1301,8 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
     v = {k: x.item() for k, x in t.val_step(bt).items()}
     m = {k: x.item() for k, x in t.train_step(bt).items()}
     out = {"cuda": (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])}
-    proc, path, started = cpu_ref
-    t0 = time.perf_counter()
-    _, stderr = proc.communicate(timeout=900)
-    waited = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"stage 2 on the CPU: rc {proc.returncode}: {stderr[-3000:]}")
-    cpu = torch.load(path, weights_only=False)
+    cpu = cpu_side_result(cpu_ref, f"stage 2, b={STAGE2_CPU_BATCH}", summary)
     out["cpu"] = cpu["gt"]
-    summary.update(cpu_s=cpu["s"], cpu_waited_s=waited, cpu_saved_s=cpu["s"] - waited)
-    print(f"[stage 2 CPU side, b={STAGE2_CPU_BATCH}] its process took {cpu['s']:.1f} s beside the card "
-          f"(started {t0 - started:.1f} s before it was asked for); waited {waited:.1f} s: the cut saved "
-          f"{cpu['s'] - waited:.1f} s")
     for what, i in (("val_step", 0), ("train_step", 1)):
         for k in out["cpu"][i]:
             a_, b_ = out["cuda"][i][k], out["cpu"][i][k]
@@ -1323,13 +1354,13 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
     else:
         print("[TBPTT val_step f32 r7 card vs CPU] not compared: the corners differ")
 
-    # -- K1 on the path's last train batch (d 485)
+    # -- K1 on the path's last train batch (d 485); its plain version in a
+    #    CPU process beside the rest of the phase
     d = cfg.max_delay_samples
-    k1 = check_k1_path(fxk, k1_args(train_batches[-1], d),
-                       f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d {d}")
-    k1_row["d485"] = dict(launches=total["flanger"], max_abs_err=k1["err"], ms=k1["ms"],
-                          plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-                          **{k: k1[k] for k in K1_EXTRA})
+    k1_path = k1_args(train_batches[-1], d)
+    plain_tmp = tempfile.TemporaryDirectory()
+    k1_plain = start_plain_on_cpu("flanger_plain", [k1_path], Path(plain_tmp.name))
+    k1 = check_k1_path(fxk, k1_path, f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d {d}")
 
     # -- each kernel at the main path's shapes, on the path's own data
     k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
@@ -1350,6 +1381,15 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
     # -- where one full-width TBPTT train step spends the card's time
     wall_ms, busy_ms = profile_train_step(task, train_batches[1], "stage 2")
     summary.update(step_ms=step_mean * 1e3, profiled_wall_ms=wall_ms, busy_ms=busy_ms)
+
+    t0 = time.perf_counter()
+    (k1["err"],), (k1["plain_ms"],) = plain_results(*k1_plain, [k1["out"]], "K1 on stage 2's path")
+    plain_tmp.cleanup()
+    print(f"[K1 stage 2 batch, d {d}, plain version on the CPU] max_abs_err={k1['err']:.3e} "
+          f"plain_ms={k1['plain_ms']:.1f}; waited {time.perf_counter() - t0:.1f} s for it")
+    k1_row["d485"] = dict(launches=total["flanger"], max_abs_err=k1["err"], ms=k1["ms"],
+                          plain_ms=k1["plain_ms"], plain_device="cpu", bound_ms=k1["bound_ms"],
+                          **{k: k1[k] for k in K1_EXTRA})
     return rows
 
 
@@ -1369,25 +1409,66 @@ def h160_fma_cycles(n: int, rows: int) -> int:
     return rows * 4 * 160 * 160 // (n * 128)
 
 
-def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
+H160_CPU_SEED, H160_CPU_BATCH = 2101, 3  # the card-vs-CPU step at H 160
+
+
+def h160_task(dev: str, lfo_model):
+    """The task of configs/train_em_sim_chorus_h160.yml (its AdamW and task
+    arguments, the shipped LSTM-160) on `dev`, conditioned on `lfo_model`
+    (None: the ground-truth LFO), rendering chorus (delay line 1764)."""
+    from mod_extraction_tpu_torch.cli import build_optimizer, load_yaml_with_includes
+    from mod_extraction_tpu_torch.data.synthetic import CHORUS_DELAYS_MS, flanger_max_delay_samples
+    from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model
+    from mod_extraction_tpu_torch.train.render import RenderConfig
+    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+
+    config = load_yaml_with_includes(H160_CONFIG)
+    margs = config["model"]["init_args"]
+    kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
+                                "should_stretch", "max_n_corners", "discard_invalid_lfos", "loss_dict")}
+    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,),
+                       max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
+    return TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM160), device=dev), cfg, lfo_model=lfo_model,
+                                   optimizer=build_optimizer(config["optimizer"]), device=dev, **kw)
+
+
+def h160_step(dev: str) -> tuple:
+    """One float32 step of `h160_task` on the ground-truth LFO at batch 3 on
+    `dev` (the plain kernels on the CPU): (val metrics, train metrics, the
+    LSTM's parameters after the step's 84 AdamW updates, on the CPU)."""
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
+
+    t = h160_task(dev, None)
+    bt = batch_to_torch(make_synthetic_batch(H160_CPU_SEED, H160_CPU_BATCH, N_SAMPLES, SR, "chorus"), dev)
+    v = {k: x.item() for k, x in t.val_step(bt).items()}
+    m = {k: x.item() for k, x in t.train_step(bt).items()}
+    return v, m, [p.detach().cpu() for p in t.effect_model.parameters()]
+
+
+def h160_cpu_reference(out_path: str) -> None:
+    """The CPU side of the H 160 card-vs-CPU step, in a process of its own
+    (`start_cpu_side`): `h160_step` on the CPU, saved to `out_path` with the
+    seconds it took."""
+    t0 = time.perf_counter()
+    torch.set_num_threads(STAGE2_CPU_THREADS)
+    gt = h160_step("cpu")
+    torch.save(dict(gt=gt, s=time.perf_counter() - t0), out_path)
+
+
+def run_stage2_h160(fxk, lk, rng, h64: dict, cpu_ref: tuple) -> tuple:
     """The shipped H 160 chorus model's TBPTT training as its config sets it
     up (batch 32, warm-up and 83 chunks of 1024, the config's AdamW, the
     frozen r6 extractor in bf16) on synthetic chorus batches (delay line
     1764): the kernels at the path's shapes with the shipped weights, a
     `val_step` and a few `train_step`s counted per step and timed beside
-    the H 64 step (`h64`), one step on the card against the CPU, K3 over the
-    val_step clip against a float64 walk, the kernels' rows and a profile.
-    Returns (rows, K1's launches)."""
-    from mod_extraction_tpu_torch.cli import build_optimizer, load_yaml_with_includes
-    from mod_extraction_tpu_torch.data.synthetic import (
-        CHORUS_DELAYS_MS,
-        batch_to_torch,
-        flanger_max_delay_samples,
-        make_synthetic_batch,
-    )
+    the H 64 step (`h64`), one step on the card against the CPU (its CPU
+    side `cpu_ref`, `start_cpu_side`'s process of `h160_cpu_reference`), K3
+    over the val_step clip against a float64 walk, the kernels' rows and a
+    profile.  Returns (rows, K1's launches); the CPU side's seconds go to
+    `h64["h160 cpu"]`."""
+    from mod_extraction_tpu_torch.cli import load_yaml_with_includes
+    from mod_extraction_tpu_torch.data.synthetic import batch_to_torch, make_synthetic_batch
     from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
-    from mod_extraction_tpu_torch.train.render import RenderConfig
-    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
     hid = 160
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1409,19 +1490,10 @@ def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
         fail(f"K5 at H 160, B {BATCH} takes {kern5}, occupancy {occ5}")
     config = load_yaml_with_includes(H160_CONFIG)
     margs = config["model"]["init_args"]
-    kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
-                                "should_stretch", "max_n_corners", "discard_invalid_lfos", "loss_dict")}
     if not (margs["effect_model"]["init_args"]["n_hidden"] == hid
             and Path(margs["lfo_model_weights_path"]).name == R6.name
             and config["data"]["init_args"]["batch_size"] == BATCH):
         fail(f"{H160_CONFIG} no longer names H {hid}, the r6 extractor and batch {BATCH}")
-    optimizer = build_optimizer(config["optimizer"])
-    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,),
-                       max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
-
-    def make_task(dev, lfo_model):
-        return TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM160), device=dev), cfg,
-                                       lfo_model=lfo_model, optimizer=optimizer, device=dev, **kw)
 
     # -- the kernels at the path's shapes with the shipped weights
     em_w = load_lstm_effect_model(str(LSTM160), device="cuda")
@@ -1432,7 +1504,7 @@ def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
 
     # -- the main path, counted per step
     extractor = load_spectral_2dcnn(str(R6), device="cuda", **PAPER, compute_dtype="bfloat16")
-    task = make_task("cuda", extractor)
+    task = h160_task("cuda", extractor)
     n_up = task.updates_per_batch
     if n_up != 83:
         fail(f"updates_per_batch is {n_up}, expected 83")
@@ -1486,16 +1558,12 @@ def run_stage2_h160(fxk, lk, rng, h64: dict) -> tuple:
           f"{h64['step_ms']:.3f}, profiled wall {h64['profiled_wall_ms']:.2f} ms, busy {h64['busy_ms']:.2f} ms")
 
     # -- one step on the card against the CPU, float32, batch 3, ground-truth
-    #    conditioning, plain kernels there: the val and train metrics and the
-    #    parameters after the step's 84 AdamW updates
-    ref_np = make_synthetic_batch(2101, 3, N_SAMPLES, SR, "chorus")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        t = make_task(dev, None)
-        bt = batch_to_torch(ref_np, dev)
-        v = {k: x.item() for k, x in t.val_step(bt).items()}
-        m = {k: x.item() for k, x in t.train_step(bt).items()}
-        out[dev] = (v, m, [p.detach().cpu() for p in t.effect_model.parameters()])
+    #    conditioning, plain kernels there (`h160_step`; the CPU side from
+    #    its own process): the val and train metrics and the parameters
+    #    after the step's 84 AdamW updates
+    out = {"cuda": h160_step("cuda")}
+    h64["h160 cpu"] = {}
+    out["cpu"] = cpu_side_result(cpu_ref, f"stage 2 H 160, b={H160_CPU_BATCH}", h64["h160 cpu"])["gt"]
     for what, i in (("val_step", 0), ("train_step", 1)):
         for k in out["cpu"][i]:
             a_, b_ = out["cuda"][i][k], out["cpu"][i][k]
@@ -2593,6 +2661,7 @@ DDP_TOL = {"stage 1": (1e-5, 2e-5, 1e-4), "H 64": (5e-5, 5e-5, 5e-4), "H 160": (
 # must read above the bound, or the check fails as blind.
 DDP_GRAD_BOUND = 2e-2
 DDP_RANKS = 2
+DDP_SUB_BATCH = 8  # the sub-batched stage-1 step: 4 sub-batches of 32, 4 rows of each a rank
 N_DDP_TIMED = 3  # steps timed in each turn, after one warm-up step
 DDP_TIMEOUT = 600.0  # seconds a spawned run may take before its ranks are killed
 RESAMPLE_PAIRS = ((44100, 48000), (48000, 44100))
@@ -2602,50 +2671,41 @@ RESAMPLE_TOL = 1e-6  # max-abs, the card against its CPU run
 def ddp_task(name: str):
     """(task on the card, its global batch as numpy) of one of the steps the
     two-rank check holds, from fixed seeds: "stage 1" (the r7 extractor at
-    paper width, bf16 convs, an interwoven batch of 32), "H 64" (the task of
-    configs/train_em_sim_flanger_r7.yml) and "H 160" (that of
+    paper width, bf16 convs, an interwoven batch of 32), "stage 1
+    sub-batched" (the same with `sub_batch_size` DDP_SUB_BATCH), "stage 1
+    sub-batched f32" (that in float32 convs), "H 64"
+    (the task of configs/train_em_sim_flanger_r7.yml) and "H 160" (that of
     configs/train_em_sim_chorus_h160.yml)."""
-    from mod_extraction_tpu_torch.cli import build_optimizer, load_yaml_with_includes
     from mod_extraction_tpu_torch.data.synthetic import (
         CHORUS_DELAYS_MS,
         flanger_max_delay_samples,
         make_interwoven_batch,
         make_synthetic_batch,
     )
-    from mod_extraction_tpu_torch.models.convert import load_lstm_effect_model, load_spectral_2dcnn
+    from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
     from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
     from mod_extraction_tpu_torch.train.render import RenderConfig
-    from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
-    if name == "stage 1":
+    if name.startswith("stage 1"):
         cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2, 3),
                            max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
-        model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
-        task = LFOExtractionTask(model, cfg, loss_dict=LOSSES, device="cuda", seed=0)
+        dtype = "float32" if name.endswith("f32") else "bfloat16"
+        model = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype=dtype)
+        sub = DDP_SUB_BATCH if "sub-batched" in name else None
+        task = LFOExtractionTask(model, cfg, loss_dict=LOSSES, sub_batch_size=sub, device="cuda", seed=0)
         return task, make_interwoven_batch(3000, BATCH, N_SAMPLES, SR)
     if name == "H 64":
-        cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,), max_delay_samples=485)
         extractor = load_spectral_2dcnn(str(R7), device="cuda", **PAPER, compute_dtype="bfloat16")
-        task = TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM64), device="cuda"), cfg,
-                                       lfo_model=extractor, device="cuda", **TBPTT)
-        return task, make_synthetic_batch(3001, BATCH, N_SAMPLES, SR, "flanger")
-    config = load_yaml_with_includes(H160_CONFIG)
-    margs = config["model"]["init_args"]
-    kw = {k: margs[k] for k in ("warmup_n_samples", "step_n_samples", "use_dry", "model_smooth_n_frames",
-                                "should_stretch", "max_n_corners", "discard_invalid_lfos", "loss_dict")}
-    cfg = RenderConfig(sr=SR, n_samples=N_SAMPLES, effects=(2,),
-                       max_delay_samples=flanger_max_delay_samples(*CHORUS_DELAYS_MS, SR))
+        return stage2_task("cuda", extractor), make_synthetic_batch(3001, BATCH, N_SAMPLES, SR, "flanger")
     extractor = load_spectral_2dcnn(str(R6), device="cuda", **PAPER, compute_dtype="bfloat16")
-    task = TBPTTEffectModelingTask(load_lstm_effect_model(str(LSTM160), device="cuda"), cfg,
-                                   lfo_model=extractor, optimizer=build_optimizer(config["optimizer"]),
-                                   device="cuda", **kw)
-    return task, make_synthetic_batch(3002, BATCH, N_SAMPLES, SR, "chorus")
+    return h160_task("cuda", extractor), make_synthetic_batch(3002, BATCH, N_SAMPLES, SR, "chorus")
 
 
 def _ddp_rank_steps(names: tuple) -> dict:
     """One rank of the two-rank check: each step on this rank's rows of its
-    global batch, counted, its global metrics and parameters returned; then
-    one more step of the same batch, timed."""
+    global batch (of a sub-batched task, its shares of the sub-batches),
+    counted, its global metrics and parameters returned; then one more step
+    of the same batch, timed."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch
     from mod_extraction_tpu_torch.ops import lstm_kernels as lk
     from mod_extraction_tpu_torch.parallel.dist import shard_batch, to_numpy, world
@@ -2654,7 +2714,7 @@ def _ddp_rank_steps(names: tuple) -> dict:
     out = {}
     for name in names:
         task, batch = ddp_task(name)
-        local = batch_to_torch(shard_batch(batch, rank, size), task.device)
+        local = batch_to_torch(shard_batch(batch, rank, size, getattr(task, "sub_batch_size", None)), task.device)
         rows = local["dry"].shape[0] if "dry" in local else local["mod_sig"].shape[0]
         reset_launch_counts()
         metrics = task.train_step(local)
@@ -2888,29 +2948,62 @@ def _diffs(got: dict, ref: dict, tol: tuple) -> dict:
         bits=all(np.array_equal(got["params"][k], w) for k, w in ref["params"].items()))
 
 
-def _one_process_step(name: str, sub_batches: int = 1, first_rows_only: bool = False) -> dict:
+def _one_process_step(name: str, sub_batches: int = 1, first_rows_only: bool = False,
+                      shares: bool = False) -> dict:
     """The one-process step of `name` on its whole batch (with
     `sub_batches`, the stage-1 task's `sub_batch_size` over the same halves
     the ranks take, with the same SpecAugment draws in each; with
     `first_rows_only`, on rank 0's rows alone, as that rank computes its
-    gradient before the all-reduce), counted."""
+    gradient before the all-reduce: of a sub-batched task, its shares, each
+    a sub-batch of its own; with `shares`, of a sub-batched task, each
+    rank's gradient so, then their mean, as the all-reduce takes it, and
+    one update), counted."""
     from mod_extraction_tpu_torch.data.synthetic import batch_to_torch
     from mod_extraction_tpu_torch.parallel.dist import shard_batch
 
     task, batch = ddp_task(name)
+    sub = getattr(task, "sub_batch_size", None)
     if first_rows_only:
-        batch = shard_batch(batch, 0, DDP_RANKS)
+        batch = shard_batch(batch, 0, DDP_RANKS, sub)
+        if sub is not None:
+            task.sub_batch_size = sub // DDP_RANKS
     kw = {}
     if sub_batches > 1:
         task.sub_batch_size = BATCH // sub_batches
         kw["mask_draws"] = torch.rand(4, generator=torch.Generator().manual_seed(0)).expand(sub_batches, 4)
     reset_launch_counts()
-    metrics = task.train_step(batch_to_torch(batch, task.device), **kw)
+    if shares:
+        task.sub_batch_size = sub // DDP_RANKS
+        draws = torch.rand(BATCH // sub, 4, generator=torch.Generator().manual_seed(0))  # the task's own
+        task.model.train()
+        params, per_rank, metrics = list(task.model.parameters()), [], []
+        for r in range(DDP_RANKS):
+            task.optimizer.zero_grad(set_to_none=True)
+            local = batch_to_torch(shard_batch(batch, r, DDP_RANKS, sub), task.device)
+            metrics.append(task._backward_subbatched(local, None, draws))
+            per_rank.append([p.grad for p in params])
+        for p, g0, g1 in zip(params, *per_rank):
+            p.grad = (g0 + g1) / DDP_RANKS
+        task._update()
+        metrics = {k: (metrics[0][k] + metrics[1][k]) / DDP_RANKS for k in metrics[0]}
+    else:
+        metrics = task.train_step(batch_to_torch(batch, task.device), **kw)
     torch.cuda.synchronize()
     return dict(metrics={k: float(v) for k, v in metrics.items()}, launches=launch_counts(),
                 params={k: v.detach().float().cpu().numpy() for k, v in task.trained_model.state_dict().items()},
                 grads={k: p.grad.detach().float().cpu().numpy() for k, p in task.trained_model.named_parameters()
                        if p.grad is not None})
+
+
+# what (b) holds of a step against each one-process reference, besides its
+# loss: the parameters within the step's tolerance ("params", the default),
+# the gradients within DDP_GRAD_BOUND ("grads"), the parameters bit for bit
+# ("bits"), or nothing more ("loss")
+DDP_HOLDS = {
+    ("stage 1", "full batch"): "grads", ("stage 1", "two halves"): "bits",
+    ("stage 1 sub-batched", "same shares"): "bits", ("stage 1 sub-batched", "sub-batched step"): "loss",
+    ("stage 1 sub-batched f32", "sub-batched step"): "grads",
+}
 
 
 def ddp_two_ranks(rows: list, summary: dict) -> None:
@@ -2927,23 +3020,37 @@ def ddp_two_ranks(rows: list, summary: dict) -> None:
     against the full-batch step are printed beside them, not held: cuDNN
     sums B 16 in another order than B 32, and AdamW's first update,
     lr * g / (|g| + eps), turns a gradient whose sign those sums flip into
-    a 2 lr difference."""
-    from mod_extraction_tpu_torch.parallel.dist import run_ranks
+    a 2 lr difference.
 
-    names = ("stage 1", "H 64", "H 160")
+    The sub-batched stage-1 step (`sub_batch_size` DDP_SUB_BATCH, each rank
+    its share of every sub-batch; K1 and K2 one launch a share a rank) is
+    held the same way: its parameters and gradients bit for bit against the
+    one-process step over the same shares (each rank's gradient computed so,
+    their mean, one update), its loss against the one-process sub-batched
+    step's.  Its gradients against that step are held in float32 convs
+    ("stage 1 sub-batched f32"), and printed in bf16: cuDNN's bf16 convs at
+    B 4 a share round otherwise than at B 8 a sub-batch, so even the
+    forward differs there."""
+    from mod_extraction_tpu_torch.parallel.dist import run_ranks, sub_batch_shares
+
+    names = ("stage 1", "stage 1 sub-batched", "stage 1 sub-batched f32", "H 64", "H 160")
     t0 = time.perf_counter()
     ranks = run_ranks(_ddp_rank_steps, DDP_RANKS, args=(names,), device="cuda", backend="gloo",
                       local_ranks=[0] * DDP_RANKS, timeout=DDP_TIMEOUT)
     print(f"[ddp (b)] {DDP_RANKS} ranks on one card (gloo): {time.perf_counter() - t0:.1f} s")
     problems = []
     for name in names:
-        tol = DDP_TOL[name]
+        tol = DDP_TOL[name.split(" sub-batched")[0]]
+        sub_batched = "sub-batched" in name
         full = _one_process_step(name)
-        refs = {"full batch": full}
+        refs = {"sub-batched step" if sub_batched else "full batch": full}
         if name == "stage 1":
             refs["two halves"] = _one_process_step(name, DDP_RANKS)
+        if name == "stage 1 sub-batched":
+            refs["same shares"] = _one_process_step(name, shares=True)
+        if name.startswith("stage 1"):
             control = _diffs(_one_process_step(name, first_rows_only=True), full, tol)["grads"]
-            print(f"[ddp (b) {name} control] rank 0's own half-batch gradient (no all-reduce) vs the full-batch "
+            print(f"[ddp (b) {name} control] rank 0's own rows' gradient (no all-reduce) vs the one-process "
                   f"gradient: max over leaves of max |d| / max |g| {control:.3e} (bound {DDP_GRAD_BOUND})")
             if not control > DDP_GRAD_BOUND:
                 problems.append(f"ddp (b) {name}: the control reads {control}, within the gradient bound "
@@ -2953,27 +3060,35 @@ def ddp_two_ranks(rows: list, summary: dict) -> None:
             got = res[name]
             for label, ref in refs.items():
                 d = _diffs(got, ref, tol)
+                grad_bits = all(np.array_equal(got["grads"][k], g) for k, g in ref["grads"].items())
                 print(f"[ddp (b) {name} rank {r}, {got['rows']} rows, vs one process on the {label}] loss "
                       f"{got['metrics']['loss']:.7f} vs {ref['metrics']['loss']:.7f} (|d| {d['loss']:.3e}, "
                       f"tolerance {tol[0]}); parameters max |d| {d['params']:.3e} (atol {tol[1]}, rtol {tol[2]}: "
                       f"{d['outside']} of {sum(w.size for w in ref['params'].values())} outside; bit for bit "
-                      f"{d['bits']}); gradients max |d| / max |g| {d['grads']:.3e}")
-                if name != "stage 1":
-                    held = d["params_ok"]
-                elif label == "two halves":
-                    held = d["bits"]
-                else:
+                      f"{d['bits']}); gradients max |d| / max |g| {d['grads']:.3e} (bit for bit {grad_bits})")
+                hold = DDP_HOLDS.get((name, label), "params")
+                if name.startswith("stage 1") and label != "two halves" and label != "same shares":
                     summary[f"(b) {name} gradients"]["ranks"].append(d["grads"])
-                    held = d["grads"] <= DDP_GRAD_BOUND
+                held = dict(params=d["params_ok"], grads=d["grads"] <= DDP_GRAD_BOUND, loss=True,
+                            bits=d["bits"] and grad_bits)[hold]
                 if d["loss"] > tol[0] or not held:
                     problems.append(f"ddp (b) {name} rank {r} vs {label}: loss |d| {d['loss']}, parameters "
-                                    f"excess {d['excess']}, bit for bit {d['bits']}, gradients {d['grads']}")
+                                    f"excess {d['excess']}, bit for bit {d['bits']}, gradients {d['grads']} "
+                                    f"(held: {hold})")
             print(f"[ddp (b) {name} rank {r}] launches {got['launches']}; LSTM plans {got['plans']}; a second "
                   f"step {got['second_step_ms']:.3f} ms (two ranks sharing the card: a correctness run, not a "
                   f"speed figure)")
             if got["rows"] != BATCH // DDP_RANKS or got["launches"] != full["launches"]:
                 problems.append(f"ddp (b) {name} rank {r}: {got['rows']} rows, launches {got['launches']}; the "
                                 f"one-process step launched {full['launches']}")
+            if sub_batched:
+                shares = sub_batch_shares(BATCH, DDP_SUB_BATCH, r, DDP_RANKS)
+                held_shares = sum(hi > lo for lo, hi in shares)
+                print(f"[ddp (b) {name} rank {r}] shares (global rows) {shares}: K1 {got['launches']['flanger']}, "
+                      f"K2 {got['launches']['phaser']} launches, one a share held ({held_shares})")
+                if not got["launches"]["flanger"] == got["launches"]["phaser"] == held_shares:
+                    problems.append(f"ddp (b) {name} rank {r}: K1 / K2 launched {got['launches']}, expected "
+                                    f"{held_shares} each, one a share")
             if not all(math.isfinite(v) for v in got["metrics"].values()):
                 problems.append(f"ddp (b) {name} rank {r}: non-finite metrics {got['metrics']}")
             add_ddp_launches(rows, got["launches"], f"(b) {name}", h160=name == "H 160")
@@ -3193,7 +3308,7 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     if any(got[k] != v for k, v in val_want.items()):
         fail(f"variants {name}: val_step launched {got}, expected {val_want}")
     total = {k: total[k] + got[k] for k in total}
-    step_s, metrics = [], None
+    step_s, metrics, valid = [], None, []
     for i, tb in enumerate(train_batches):
         reset_launch_counts()
         torch.cuda.synchronize()
@@ -3207,7 +3322,9 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
         total = {k: total[k] + got[k] for k in total}
         if i > 0:
             step_s.append(dt)
-        print(f"[variants {name} train_step {i}] loss={metrics['loss']:.6f} wall={dt * 1e3:.2f} ms")
+        valid.append(metrics.get("valid_fraction"))
+        print(f"[variants {name} train_step {i}] loss={metrics['loss']:.6f} valid_fraction={valid[-1]} "
+              f"wall={dt * 1e3:.2f} ms")
     if not all(math.isfinite(v) for v in (*val.values(), *metrics.values())):
         fail(f"variants {name}: non-finite metrics: val {val}, train {metrics}")
     if not all(torch.isfinite(p).all().item() for p in task.trained_model.parameters()):
@@ -3215,7 +3332,7 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     ms = float(np.mean(step_s)) * 1e3
     print(f"[variants {name}] val loss={val['loss']:.6f} valid_fraction={val.get('valid_fraction', 1.0)} "
           f"mean_step_ms={ms:.3f} (steps after the first) launches={total}")
-    return dict(launches=total, step_ms=ms, val=val, train=metrics)
+    return dict(launches=total, step_ms=ms, val=val, train=metrics, valid_fractions=valid)
 
 
 def lstm_plain_errors(lk, k3_args, k4_args, k5_args) -> tuple:
@@ -3318,9 +3435,14 @@ def run_variants(lk, rows: list) -> dict:
     # (c) the unfrozen extractor
     task = cli.RunConfig(variant_config("unfrozen"), "cuda").task
     before = {k: v.clone() for k, v in task.lfo_model.state_dict().items()}
-    r = _variant_steps("unfrozen", task, batches("unfrozen", 1, 6000)[0],
-                       batches("unfrozen", N_VARIANT_TBPTT_STEPS), tbptt_step(task.updates_per_batch), tbptt_val)
+    train = batches("unfrozen", N_VARIANT_TBPTT_STEPS)
+    untrained = [float(task._prepare(b)[4].mean()) for b in train]  # each batch under the untrained extractor
+    r = _variant_steps("unfrozen", task, batches("unfrozen", 1, 6000)[0], train,
+                       tbptt_step(task.updates_per_batch), tbptt_val)
     add(r["launches"])
+    print(f"[variants unfrozen] valid LFO fraction of each train batch under the untrained extractor "
+          f"{untrained}; in the steps, batch i under the extractor after i batches: {r['valid_fractions']}")
+    r["untrained_valid_fractions"] = untrained
     moved = max(float((v - before[k]).abs().max()) for k, v in task.lfo_model.state_dict().items())
     print(f"[variants unfrozen] the extractor's largest weight change over the steps {moved:.3e}")
     if not moved > 0:
@@ -3480,28 +3602,37 @@ def check_preproc(gen, cfg: dict, out: Path, d: int) -> dict:
 
 def start_plain_on_cpu(name: str, calls: list, tmp: Path) -> tuple:
     """Starts a CPU process that runs `fx_kernels.<name>`, a kernel's plain
-    version, on each argument tuple of `calls` (the card's inputs, copied);
-    returns (the process, the file its outputs go to)."""
+    version, on each argument tuple of `calls` (the card's inputs, copied),
+    timing each call; returns (the process, the file its outputs and
+    seconds go to)."""
     src, dst = tmp / f"{name}_in.pt", tmp / f"{name}_out.pt"
     torch.save([tuple(a.cpu() if torch.is_tensor(a) else a for a in args) for args in calls], src)
-    code = ("import sys, torch; torch.set_num_threads(1); "
+    code = ("import sys, time, torch; torch.set_num_threads(1); "
             "from mod_extraction_tpu_torch.ops import fx_kernels as f; "
-            f"torch.save([f.{name}(*a) for a in torch.load(sys.argv[1])], sys.argv[2])")
+            "out = []\nfor a in torch.load(sys.argv[1]):\n    t0 = time.perf_counter(); "
+            f"out.append((f.{name}(*a), time.perf_counter() - t0))\ntorch.save(out, sys.argv[2])")
     proc = subprocess.Popen([sys.executable, "-c", code, str(src), str(dst)], cwd=ROOT,
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     return proc, dst
 
 
-def plain_errors(proc, dst: Path, outs: list, label: str) -> list:
-    """max-abs of each kernel output in `outs` against the plain version's
-    output that `start_plain_on_cpu`'s process wrote; fails above KERNEL_TOL."""
+def plain_results(proc, dst: Path, outs: list, label: str) -> tuple:
+    """(max-abs of each kernel output in `outs` (on the CPU) against the
+    plain version's output that `start_plain_on_cpu`'s process wrote, the
+    ms of each plain call there); fails above KERNEL_TOL."""
     _, stderr = proc.communicate(timeout=900)
     if proc.returncode != 0:
         fail(f"{label}: the plain version on the CPU: rc {proc.returncode}: {stderr[-2000:]}")
-    errs = [max_abs(o, r) for o, r in zip(outs, torch.load(dst))]
+    res = torch.load(dst)
+    errs = [max_abs(o, r) for o, (r, _) in zip(outs, res)]
     if not all(e <= KERNEL_TOL for e in errs):
         fail(f"{label} disagrees with its plain version on the same inputs: {errs}")
-    return errs
+    return errs, [sec * 1e3 for _, sec in res]
+
+
+def plain_errors(proc, dst: Path, outs: list, label: str) -> list:
+    """The errors of `plain_results`."""
+    return plain_results(proc, dst, outs, label)[0]
 
 
 def fabricate_egfx_48k(root: Path) -> None:
@@ -3591,7 +3722,7 @@ def run_prep(rows: list) -> dict:
                 t0 = time.perf_counter()
                 res, args = check_preproc(gen, cfg, dest, d)
                 res.update(generate_s=gen_s, check_s=time.perf_counter() - t0, d=d, launches=launches["flanger"])
-                k1 = check_k1_path(fxk, args, f"prep {Path(path).name}, {tuple(args[0].shape)}, d {d}", plain=False)
+                k1 = check_k1_path(fxk, args, f"prep {Path(path).name}, {tuple(args[0].shape)}, d {d}")
                 k1_calls.append(args)
                 k1_outs.append(fxk.flanger(*args).cpu())
                 res.update({f"k1_{k}": k1[k] for k in ("ms", "walk_ms", "bound_ms", "steps_max", "cycles_per_step")})
@@ -3774,18 +3905,19 @@ def main() -> int:
         phases[name] = time.perf_counter() - t0
         return out
 
-    # stage 2's CPU side, in its own process from here on
+    # the CPU sides of stage 2's and the H 160 phase's card-vs-CPU steps, each
+    # in its own process from here on
     tmp = tempfile.TemporaryDirectory()
-    stage2_cpu = start_stage2_cpu(tmp.name)
-    atexit.register(lambda: stage2_cpu[0].poll() is None and (stage2_cpu[0].kill(), stage2_cpu[0].wait()))
+    cpu_sides = {fn: start_cpu_side(fn, tmp.name) for fn in ("stage2_cpu_reference", "h160_cpu_reference")}
+    atexit.register(lambda: [(p.kill(), p.wait()) for p, _, _ in cpu_sides.values() if p.poll() is None])
     rows = timed("stage 1", run_stage1, fxk, rng)
     rows += timed("stage 1 (wgrad=pallas)", run_stage1_kernel_wgrad, fxk, ck, rng)
     h64 = {}
-    rows += timed("stage 2", run_stage2, fxk, lk, rng, rows[0], h64, stage2_cpu)
+    rows += timed("stage 2", run_stage2, fxk, lk, rng, rows[0], h64, cpu_sides["stage2_cpu_reference"])
+    h160_rows, k1_h160 = timed("stage 2 H 160", run_stage2_h160, fxk, lk, rng, h64,
+                               cpu_sides["h160_cpu_reference"])
     tmp.cleanup()
-    print(f"[stage 2] its CPU side took {h64['cpu_s']:.1f} s in a process beside the card; waited "
-          f"{h64['cpu_waited_s']:.1f} s: the cut saved {h64['cpu_saved_s']:.1f} s")
-    h160_rows, k1_h160 = timed("stage 2 H 160", run_stage2_h160, fxk, lk, rng, h64)
+    saved = {"stage 2": h64["cpu_saved_s"], "stage 2 H 160": h64["h160 cpu"]["cpu_saved_s"]}
     rows += h160_rows
     rows[0]["d1764_h160_path_launches"] = k1_h160
     serving = timed("serving", run_serving, lk, rng)
@@ -3819,8 +3951,7 @@ def main() -> int:
     print("[prep] " + json.dumps(timed("prep", run_prep, rows)))
 
     print("[phases, s] " + json.dumps({k: round(v, 1) for k, v in phases.items()})
-          + f"; the stage-2 cut saved {h64['cpu_saved_s']:.1f} s, the reference phase took "
-          f"{phases['reference']:.1f} s")
+          + "; the CPU sides beside the card saved " + ", ".join(f"{k} {v:.1f} s" for k, v in saved.items()))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

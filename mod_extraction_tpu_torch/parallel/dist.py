@@ -7,7 +7,8 @@ Here each process is one rank on one card, as `torchrun --nproc_per_node N`
 starts them:
 
 * every rank draws the same global batch (the loaders are config-seeded) and
-  keeps its contiguous block of rows (`shard_batch`);
+  keeps its contiguous block of rows (`shard_batch`), or under a task's
+  `sub_batch_size` its share of every sub-batch (`sub_batch_shares`);
 * the parameters start equal on every rank (seeded init or the same
   checkpoint, checked by `check_replicated`) and stay equal: after each
   backward the gradients are averaged over the ranks (`all_reduce_grads`),
@@ -113,17 +114,42 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(batch, rank: int, world_size: int):
+def sub_batch_shares(batch_size: int, sub_batch_size: int, rank: int, world_size: int) -> list:
+    """The global rows [lo, hi) that `rank` holds of each sub-batch of a
+    sub-batched task, in order (a share may be empty).  Sub-batch i, rows
+    [i * sub, (i + 1) * sub), is cut at floor(q * sub / W) for q = 0..W, and
+    rank r takes its share q = (r + i) mod W.  The rotation spreads the
+    larger and the empty shares over the ranks: every rank holds B / W rows
+    in all, at least one.  The JAX package shards each sub-batch of its
+    scan over the mesh; the rows a rank holds do not change the step, only
+    which rank computes them."""
+    if batch_size % world_size != 0:
+        raise ValueError(f"global batch dim {batch_size} not divisible by process_count {world_size}")
+    if batch_size % sub_batch_size != 0:
+        raise ValueError(f"global batch dim {batch_size} not divisible by sub_batch_size {sub_batch_size}")
+    shares = []
+    for i in range(batch_size // sub_batch_size):
+        q, base = (rank + i) % world_size, i * sub_batch_size
+        shares.append((base + q * sub_batch_size // world_size, base + (q + 1) * sub_batch_size // world_size))
+    return shares
+
+
+def shard_batch(batch, rank: int, world_size: int, sub_batch_size: Optional[int] = None):
     """This rank's rows of the global batch (a nested dict of arrays or
     tensors, batch axis first): the contiguous block
     [rank * B / W, (rank + 1) * B / W), as `mesh.py::shard_batch` feeds a
-    process.  Every rank holds the full global batch.  World 1 returns the
-    batch itself."""
+    process; with `sub_batch_size`, its shares of the sub-batches
+    (`sub_batch_shares`), one after another.  Every rank holds the full
+    global batch.  World 1 returns the batch itself."""
     if world_size == 1:
         return batch
 
     def take(x):
         n = x.shape[0]
+        if sub_batch_size is not None:
+            rows = [np.arange(lo, hi) for lo, hi in sub_batch_shares(n, sub_batch_size, rank, world_size)]
+            idx = np.concatenate(rows)
+            return x[torch.as_tensor(idx)] if isinstance(x, torch.Tensor) else x[idx]
         if n % world_size != 0:
             raise ValueError(f"global batch dim {n} not divisible by process_count {world_size}")
         per = n // world_size
@@ -238,7 +264,7 @@ def run_ranks(
     world_size: int,
     args: Sequence[Any] = (),
     *,
-    device: str = "cpu",
+    device: str = "cuda",
     backend: Optional[str] = None,
     local_ranks: Optional[Sequence[int]] = None,
     timeout: float = 120.0,
@@ -247,12 +273,16 @@ def run_ranks(
     (`torch.multiprocessing.start_processes`), each a rank of one process
     group (a `file://` rendezvous in a temporary directory), and returns
     their results by rank.  `fn` and the results cross processes by pickle
-    (`fn` by its import path).  `local_ranks` picks each rank's card
-    (default: its rank).
+    (`fn` by its import path).  `device` is each rank's device: the card
+    by default, raising here without one (`utils/device.py`), or "cpu".
+    `local_ranks` picks each rank's card (default: its rank).
 
     If a rank raises or dies, the others are ended and this raises
     `RuntimeError`; past `timeout` seconds every rank is killed and this
     raises `TimeoutError`.  No rank is left blocked in a collective."""
+    from mod_extraction_tpu_torch.utils.device import resolve_device
+
+    resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     local_ranks = list(local_ranks) if local_ranks is not None else list(range(world_size))

@@ -19,10 +19,16 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-from mod_extraction_tpu_torch.losses.losses import WeightedLossDict
+from mod_extraction_tpu_torch.losses.losses import BatchWeights, WeightedLossDict
 from mod_extraction_tpu_torch.models.random_lfo import RandomLFO
 from mod_extraction_tpu_torch.ops.corners import smoothen, stretch_corners
-from mod_extraction_tpu_torch.parallel.dist import all_reduce_grads, rank_sum, reduce_metrics, world
+from mod_extraction_tpu_torch.parallel.dist import (
+    all_reduce_grads,
+    rank_sum,
+    reduce_metrics,
+    sub_batch_shares,
+    world,
+)
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
@@ -191,12 +197,12 @@ class LFOExtractionTask(TrainableTask):
                 mod_gt = center_crop_last(mod_gt, mod_hat.shape[-1])
         return mod_hat, mod_gt
 
-    def _loss(self, batch, corpus, mask_draws, lfo_draws=None):
+    def _loss(self, batch, corpus, mask_draws, lfo_draws=None, weights=None):
         with torch.no_grad():
             dry, wet, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
         mod_hat, _ = self._extract(dry, wet, fx, mask_draws, lfo_draws)
         mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
-        return self.losses(mod_hat, mod_gt, sum_over_ranks=rank_sum())
+        return self.losses(mod_hat, mod_gt, weights, sum_over_ranks=rank_sum())
 
     def train_step(
         self,
@@ -209,9 +215,10 @@ class LFOExtractionTask(TrainableTask):
         `sub_batch_size` one row of four per sub-batch.
 
         Under data parallelism (`parallel/dist.py`) `batch` is this rank's
-        rows: every rank draws the same SpecAugment numbers, the gradients
-        are averaged over the ranks before the update, and the metrics are
-        those of the global batch."""
+        rows (with `sub_batch_size`, its shares of the sub-batches:
+        `shard_batch(..., sub_batch_size=)`): every rank draws the same
+        SpecAugment numbers, the gradients are averaged over the ranks
+        before the update, and the metrics are those of the global batch."""
         assert self.has_params, "the RandomLFO baseline has no parameters to train"
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
@@ -230,24 +237,32 @@ class LFOExtractionTask(TrainableTask):
         """Gradients (left in `.grad`) and metrics averaged over the
         sub-batches, each with its own SpecAugment draws.
 
-        Not under data parallelism: JAX shards each global sub-batch over
-        the devices, while a rank holds a contiguous block of the global
-        batch, whose sub-batches would take other rows with each draw."""
-        if world().size > 1:
-            raise NotImplementedError(
-                "sub_batch_size under data parallelism (a world of "
-                f"{world().size}): a rank's rows are not JAX's share of each sub-batch"
-            )
+        Under a world of W > 1, `batch` holds this rank's share of each
+        global sub-batch (`parallel/dist.py::sub_batch_shares`; B / W rows
+        in all).  A share's losses are weighted sums over the sub-batch's
+        size over W (`BatchWeights`), so their mean over the ranks is the
+        sub-batch's mean whatever the shares' sizes, and the gradient
+        all-reduce after the last sub-batch averages them.  A rank skips a
+        sub-batch it holds no row of: no loss starts a collective but
+        `mrstft`, whose 2048-point FFT is longer than a stage-1 LFO."""
         sub = self.sub_batch_size
-        b = _batch_size(batch)
+        rank, size, _ = world()
+        b = _batch_size(batch) * size
         assert b % sub == 0 and b >= sub
         n = b // sub
         if mask_draws is None:
             mask_draws = torch.rand(n, 4, generator=self.mask_generator)
-        mean = None
-        for i in range(n):
-            sb = _slice_batch(batch, slice(i * sub, (i + 1) * sub))
-            loss, metrics = self._loss(sb, corpus, mask_draws[i])
+        mean, start = None, 0
+        for i, (lo, hi) in enumerate(sub_batch_shares(b, sub, rank, size)):
+            if hi == lo:
+                continue
+            sb = _slice_batch(batch, slice(start, start + hi - lo))
+            start += hi - lo
+            weights = None
+            if size > 1:
+                ones = torch.ones(hi - lo, device=self.device)
+                weights = BatchWeights(ones, torch.tensor(sub / size, device=self.device))
+            loss, metrics = self._loss(sb, corpus, mask_draws[i], weights=weights)
             (loss / n).backward()  # .grad accumulates the mean gradient
             metrics = {k: v.detach() / n for k, v in metrics.items()}
             mean = metrics if mean is None else {k: mean[k] + v for k, v in metrics.items()}

@@ -10,7 +10,8 @@ with the step's `audio_sec_per_sec` and `lr`.
 
 Under data parallelism (`parallel/dist.py`, a process group of one rank a
 card) every rank iterates the same seeded epoch and keeps its block of each
-batch's rows, the device corpus goes whole to every rank's card, and the
+batch's rows (of a train batch under the task's `sub_batch_size`, its share
+of each sub-batch), the device corpus goes whole to every rank's card, and the
 tasks return the global batch's metrics.  Only rank 0 writes metrics,
 checkpoints, profiles and media; every rank restores the same checkpoint,
 and the ranks meet at a barrier after each epoch's checkpoint.
@@ -201,9 +202,10 @@ class Trainer:
         if payload is not None:
             self.corpus = put_replicated(payload, self.device)
 
-    def _host_batches(self, loader, epoch: int, pin: bool, depth: int = 2):
-        """The loader's epoch as CPU tensor batches (this rank's rows), made
-        (and pinned) on a side thread up to `depth` batches ahead."""
+    def _host_batches(self, loader, epoch: int, pin: bool, depth: int = 2, sub_batch_size=None):
+        """The loader's epoch as CPU tensor batches (this rank's rows;
+        `shard_batch`'s `sub_batch_size`), made (and pinned) on a side
+        thread up to `depth` batches ahead."""
         q: queue.Queue = queue.Queue(maxsize=depth)
         err: list = []
         stop = threading.Event()  # set when the consumer abandons the epoch
@@ -224,7 +226,8 @@ class Trainer:
             rank, size, _ = self.world
             try:
                 for b in loader.epoch(epoch):
-                    if stop.is_set() or not _put(host_batch_to_torch(shard_batch(b, rank, size), pin)):
+                    local = shard_batch(b, rank, size, sub_batch_size)
+                    if stop.is_set() or not _put(host_batch_to_torch(local, pin)):
                         return
             except BaseException as e:  # surfaced on the consumer side
                 err.append(e)
@@ -249,8 +252,9 @@ class Trainer:
                 except queue.Empty:
                     break
 
-    def _device_batches(self, loader, epoch: int, depth: int = 2):
-        """The loader's epoch with each batch on the device.
+    def _device_batches(self, loader, epoch: int, depth: int = 2, sub_batch_size=None):
+        """The loader's epoch with each batch on the device (`sub_batch_size`:
+        see `_host_batches`).
 
         On the card, each batch is copied from pinned memory on a side
         stream, `depth` batches ahead of the step that reads it: an event
@@ -260,7 +264,7 @@ class Trainer:
         wait for the loader and the copies are profiler ranges
         (`trainer.loader_wait`, `trainer.batch_copy`)."""
         use_stream = self.device.type == "cuda" and not self.sync_copies
-        host = self._host_batches(loader, epoch, pin=use_stream)
+        host = self._host_batches(loader, epoch, pin=use_stream, sub_batch_size=sub_batch_size)
         if not use_stream:
             for b in host:
                 with torch.profiler.record_function("trainer.batch_copy"):
@@ -378,13 +382,14 @@ class Trainer:
         sr = self.dm.render_cfg.sr
         n_samples = self.dm.render_cfg.n_samples
         audio_sec_per_batch = self.dm.batch_size * n_samples / sr
+        sub = getattr(self.task, "sub_batch_size", None)  # the rows a rank takes of a train batch
 
         for epoch in range(start_epoch, self.max_epochs):
             train_acc = []
             t_epoch = time.time()
             t_step = time.time()
 
-            for batch in self._device_batches(train_loader, epoch):
+            for batch in self._device_batches(train_loader, epoch, sub_batch_size=sub):
                 t_step += self._maybe_profile(global_step)
                 # the step's metrics stay on the device until a log point
                 # or the epoch mean reads them

@@ -15,8 +15,16 @@ sums over two shards against one).  Also: `shard_batch`,
 the RandomLFO baseline's draws, `dryrun_multichip(2)`, `cli.fit` on two
 ranks (only rank 0 writes, resume loads the same weights on both), the
 training script under `torchrun`, and the kernel wrappers' device guard
-(by mock: fake CUDA tensors on `cuda:1`)."""
+(by mock: fake CUDA tensors on `cuda:1`).
 
+The sub-batched LFO step (`sub_batch_size`) on 2 and 4 ranks against JAX's
+8-way sharded `_train_step_subbatched` and the port's one-process step,
+with the LFO step's tolerances: sub-batches of 4 at batch 16 on 2 ranks
+(even shares), of 3 at batch 24 on 2 ranks (shares of 1 and 2) and of 2 at
+batch 16 on 4 ranks (two ranks hold no row of each sub-batch); and
+`cli.fit` of a sub-batched config on two ranks."""
+
+import copy
 import glob
 import json
 import os
@@ -48,6 +56,8 @@ TBPTT_TOL = (5e-5, 5e-5, 5e-4)
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-7
 B = 16
 TIMEOUT = 120.0  # seconds a spawned run may take
+# the sub-batched cases: (world size, global batch, sub_batch_size)
+SUB_CASES = {"W2 sub4": (2, 16, 4), "W2 sub3": (2, 24, 3), "W4 sub2": (4, 16, 2)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,7 +85,7 @@ def _assert_params(got, want, atol, rtol):
 # ---------------------------------------------------------------------------
 
 
-def _jax_tasks():
+def _jax_tasks(sub_batch_size=None):
     from mod_extraction_tpu.models import LSTMEffectModel as JLSTM
     from mod_extraction_tpu.models import Spectral2DCNN as JCNN
     from mod_extraction_tpu.train.lfo_task import LFOExtractionTask as JLFO
@@ -84,7 +94,8 @@ def _jax_tasks():
 
     cfg = JRender(sr=W.SR, n_samples=W.N, effects=(1, 2, 3), max_delay_samples=89)
     adamw = optax.adamw(1e-4, b1=0.8, b2=0.99)
-    lfo = JLFO(model=JCNN(**W.CNN), render_cfg=cfg, optimizer=adamw, loss_dict=W.LOSSES)
+    lfo = JLFO(model=JCNN(**W.CNN), render_cfg=cfg, optimizer=adamw, loss_dict=W.LOSSES,
+               sub_batch_size=sub_batch_size)
     tbptt = JTBPTT(effect_model=JLSTM(in_ch=1, out_ch=1, n_hidden=W.HID, latent_dim=1), render_cfg=cfg,
                    lfo_model=None, optimizer=adamw, lstm_impl="scan", **W.TBPTT)
     return lfo, tbptt
@@ -105,6 +116,20 @@ def _jax_mask_draws(key):
     """The four SpecAugment uniforms the JAX step draws from its key."""
     k_mask = jax.random.split(key, 3)[1]
     return [float(jax.random.uniform(k)) for k in jax.random.split(k_mask, 4)]
+
+
+def _jax_sub_batched(case, lfo_params, key):
+    """A sub-batched case ({name: (world, batch size, sub)}): JAX's 8-way
+    sharded step on its batch (its metrics and parameters) and the port's
+    arguments for `W.sub_batched_step` (the same weights, batch and
+    SpecAugment draws, one row a sub-batch as `jax.random.split(key, n)`
+    gives the sub-batches their keys)."""
+    _, b, sub = SUB_CASES[case]
+    batch = make_synthetic_batch(4, b, W.N, W.SR, "flanger")
+    lfo0, metrics, params = _jax_step(_jax_tasks(sub)[0], batch, 8, key)
+    assert all(np.array_equal(v, lfo_params[k]) for k, v in flax_to_state_dict(lfo0).items())
+    draws = [_jax_mask_draws(k) for k in jax.random.split(key, b // sub)]
+    return (metrics, flax_to_state_dict(params)), (lfo_params, batch, sub, draws)
 
 
 def _uneven(params):
@@ -137,6 +162,8 @@ def runs():
     corpus_batch = {"dry_idx": np.arange(B, dtype=np.int32) * W.N, "dry_gain": np.ones(B, np.float32),
                     "mod_sig": batch["mod_sig"], "fx": batch["fx"]}
     draws = _jax_mask_draws(key)
+    sub_refs = {c: _jax_sub_batched(c, lfo_params, key) for c in SUB_CASES if SUB_CASES[c][0] == 2}
+    sub_cases = {c: args for c, (_, args) in sub_refs.items()}
     cases = {
         "lfo": ("lfo", lfo_params, batch, None, None),
         "lfo_device_corpus": ("lfo", lfo_params, corpus_batch, None, corpus),
@@ -148,17 +175,36 @@ def runs():
     loss_in = (rng.standard_normal((B, 1, 2600)).astype(np.float32),
                rng.standard_normal((B, 1, 2600)).astype(np.float32),
                np.concatenate([np.zeros(5), np.ones(B - 5)]).astype(np.float32))
-    job = (cases, batch, loss_in, lfo_params)
-    ranks = pdist.run_ranks(_two_rank_job, 2, args=job, timeout=TIMEOUT)
+    job = (cases, batch, loss_in, sub_cases)
+    ranks = pdist.run_ranks(_two_rank_job, 2, args=job, device="cpu", timeout=TIMEOUT)
     one = {"steps": W.steps(cases), "random_lfo": W.random_lfo_val(batch),
-           "losses": W.losses_and_grads(*loss_in)}
+           "losses": W.losses_and_grads(*loss_in), "sub_batched": W.sub_batched_steps(sub_cases)}
     jax_ref = {"lfo_jax_draws": (j_lfo_m, flax_to_state_dict(j_lfo_p)),
                "tbptt": (j_tb_m, flax_lstm_to_state_dict(j_tb_p)),
                "tbptt_uneven": (j_un_m, flax_lstm_to_state_dict(j_un_p))}
-    return dict(ranks=ranks, one=one, jax=jax_ref, loss_in=loss_in)
+    jax_ref.update({c: ref for c, (ref, _) in sub_refs.items()})
+    return dict(ranks=ranks, one=one, jax=jax_ref, loss_in=loss_in, sub_cases=sub_cases, lfo_params=lfo_params,
+                key=key)
 
 
-def _two_rank_job(cases, batch, loss_in, lfo_params):
+@pytest.fixture(scope="module")
+def sub_runs(runs):
+    """The sub-batched cases on their worlds: those of two ranks from the
+    spawn of `runs`, the others in a spawn each, with the one-process step
+    of each and JAX's references."""
+    out = {c: dict(ranks=[r["sub_batched"][c] for r in runs["ranks"]], one=runs["one"]["sub_batched"][c],
+                   jax=runs["jax"][c], case=runs["sub_cases"][c]) for c in runs["sub_cases"]}
+    for c, (world_size, _, _) in SUB_CASES.items():
+        if c in out:
+            continue
+        ref, args = _jax_sub_batched(c, runs["lfo_params"], runs["key"])
+        ranks = pdist.run_ranks(W.sub_batched_steps, world_size, args=({c: args},), device="cpu",
+                                timeout=TIMEOUT)
+        out[c] = dict(ranks=[r[c] for r in ranks], one=W.sub_batched_step(*args), jax=ref, case=args)
+    return out
+
+
+def _two_rank_job(cases, batch, loss_in, sub_cases):
     return {
         "steps": W.steps(cases),
         "random_lfo": W.random_lfo_val(batch),
@@ -167,7 +213,7 @@ def _two_rank_job(cases, batch, loss_in, lfo_params):
         "detects": W.check_replicated_detects(1),
         "grads": W.gradients_after_all_reduce([1.0, -2.0, 3.0]),
         "env": W.environment(),
-        "sub_batch": W.sub_batched_step_raises(lfo_params, batch),
+        "sub_batched": W.sub_batched_steps(sub_cases),
     }
 
 
@@ -197,6 +243,32 @@ def test_shard_batch_takes_tensors_too():
 def test_shard_batch_rejects_a_batch_the_world_does_not_divide():
     with pytest.raises(ValueError, match="global batch dim 99 not divisible by process_count 4"):
         pdist.shard_batch({"x": np.zeros((99, 3))}, 0, 4)
+    with pytest.raises(ValueError, match="global batch dim 99 not divisible by process_count 4"):
+        pdist.shard_batch({"x": np.zeros((99, 3))}, 0, 4, sub_batch_size=3)
+    with pytest.raises(ValueError, match="global batch dim 12 not divisible by sub_batch_size 8"):
+        pdist.shard_batch({"x": np.zeros((12, 3))}, 0, 4, sub_batch_size=8)
+
+
+@pytest.mark.parametrize("b, sub, world_size", [(16, 4, 2), (24, 3, 2), (16, 2, 4), (24, 4, 3), (12, 6, 4),
+                                                (8, 8, 8), (6, 1, 3), (32, 8, 2), (24, 12, 8)])
+def test_sub_batch_shares_cover_each_sub_batch_once(b, sub, world_size):
+    """Over the ranks, the shares of sub-batch i partition its rows; each
+    rank holds B / W rows in all; `shard_batch` with `sub_batch_size` takes
+    them in order, from arrays and tensors alike."""
+    batch = {"x": np.arange(b * 2).reshape(b, 2), "y": {"z": torch.arange(b)}}
+    per_rank = [pdist.sub_batch_shares(b, sub, r, world_size) for r in range(world_size)]
+    for i in range(b // sub):
+        rows = sorted(x for shares in per_rank for x in range(*shares[i]))
+        assert rows == list(range(i * sub, (i + 1) * sub))
+        sizes = sorted(hi - lo for shares in per_rank for lo, hi in [shares[i]])
+        assert sizes[-1] - sizes[0] <= 1
+    for r, shares in enumerate(per_rank):
+        idx = np.concatenate([np.arange(lo, hi) for lo, hi in shares])
+        assert len(idx) == b // world_size
+        local = pdist.shard_batch(batch, r, world_size, sub_batch_size=sub)
+        np.testing.assert_array_equal(local["x"], batch["x"][idx])
+        assert torch.equal(local["y"]["z"], torch.as_tensor(idx))
+    assert pdist.sub_batch_shares(b, sub, 0, 1) == [(i * sub, (i + 1) * sub) for i in range(b // sub)]
 
 
 def test_put_replicated_copies_the_whole_payload():
@@ -329,9 +401,45 @@ def test_check_replicated_raises_where_weights_differ(runs):
     assert [r["detects"] for r in runs["ranks"]] == [False, True]
 
 
-def test_sub_batch_size_raises_under_a_world_above_one(runs):
-    for r in runs["ranks"]:
-        assert "sub_batch_size under data parallelism" in r["sub_batch"]
+def test_sub_batch_size_trains_under_a_world_above_one(sub_runs):
+    """Each rank of a sub-batched step holds its shares of the sub-batches
+    (`sub_batch_shares`, B / W rows), and every rank ends with the same
+    finite metrics and the same moved weights."""
+    for case, res in sub_runs.items():
+        world_size, b, sub = SUB_CASES[case]
+        params0, batch = res["case"][0], res["case"][1]
+        for r, got in enumerate(res["ranks"]):
+            idx = np.concatenate([np.arange(lo, hi) for lo, hi in pdist.sub_batch_shares(b, sub, r, world_size)])
+            assert len(idx) == b // world_size
+            np.testing.assert_array_equal(got["rows"], batch["mod_sig"][idx])
+            assert got["metrics"] == res["ranks"][0]["metrics"] and all(np.isfinite(list(got["metrics"].values())))
+            assert all(np.array_equal(got["params"][k], res["ranks"][0]["params"][k]) for k in params0), case
+        assert any(not np.array_equal(res["ranks"][0]["params"][k], v) for k, v in params0.items())
+
+
+@pytest.mark.parametrize("case", sorted(SUB_CASES))
+def test_sub_batched_ranks_match_jax_sharded_step(sub_runs, case):
+    """The ranks' sub-batched step against JAX's `_train_step_subbatched`
+    on the 8-way mesh: the same global sub-batches, draws and update."""
+    loss_tol, atol, rtol = LFO_TOL
+    j_metrics, j_params = sub_runs[case]["jax"]
+    want = {k: v.numpy() for k, v in j_params.items()}
+    for got in sub_runs[case]["ranks"]:
+        assert set(got["metrics"]) == set(j_metrics)
+        for k, v in j_metrics.items():
+            assert abs(got["metrics"][k] - v) <= loss_tol, (k, got["metrics"][k], v)
+        _assert_params(got["params"], want, atol, rtol)
+
+
+@pytest.mark.parametrize("case", sorted(SUB_CASES))
+def test_sub_batched_ranks_match_the_one_process_step(sub_runs, case):
+    loss_tol, atol, rtol = LFO_TOL
+    want = sub_runs[case]["one"]
+    np.testing.assert_array_equal(want["rows"], sub_runs[case]["case"][1]["mod_sig"])
+    for got in sub_runs[case]["ranks"]:
+        for k, v in want["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= loss_tol, (k, got["metrics"][k], v)
+        _assert_params(got["params"], want["params"], atol, rtol)
 
 
 def test_ranks_see_torchruns_variables(runs):
@@ -359,14 +467,23 @@ def _hang_on_rank_one():
 
 def test_run_ranks_kills_the_others_when_a_rank_fails():
     with pytest.raises(RuntimeError, match="rank one fails"):
-        pdist.run_ranks(_fail_on_rank_one, 2, timeout=60.0)
+        pdist.run_ranks(_fail_on_rank_one, 2, device="cpu", timeout=60.0)
 
 
 def test_run_ranks_kills_every_rank_at_its_deadline():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="did not finish within 15.0 s"):
-        pdist.run_ranks(_hang_on_rank_one, 2, timeout=15.0)
+        pdist.run_ranks(_hang_on_rank_one, 2, device="cpu", timeout=15.0)
     assert time.monotonic() - t0 < 15.0 + 30.0
+
+
+def test_run_ranks_runs_on_the_card_by_default():
+    """Without a card the default device raises before any rank starts;
+    it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default runs there (tests/test_torch_ddp_cuda.py)")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        pdist.run_ranks(_fail_on_rank_one, 2, timeout=60.0)
 
 
 def test_dryrun_multichip_runs_on_the_card_by_default():
@@ -474,19 +591,46 @@ def _compare_runs(port_one, port_two, one_params, two_params):
     assert all(np.array_equal(two_params[0][k], two_params[1][k]) for k in one_params)
 
 
-def test_fit_on_two_ranks_matches_one_process_and_resumes(fit_setup):
+@pytest.fixture(scope="module")
+def fit_runs(fit_setup):
+    """The fit configuration, and the same with `sub_batch_size` 2 (two
+    sub-batches of the batch of 4; each rank takes a row of each through the
+    Trainer's feed): an epoch in one process and on two ranks, then a
+    second epoch resumed from `last` on each, the two ranks' fits in one
+    spawn an epoch.  {name: (one-process dir, two-rank dir, [(one-process
+    weights, the ranks' weights) an epoch])}."""
     root, cfg = fit_setup
-    one, two = str(root / "one"), str(root / "two")
-    first = dict(cfg, trainer={"max_epochs": 1})
-    p1 = W.fit(first, one)
-    p2 = pdist.run_ranks(W.fit, 2, args=(first, two), timeout=TIMEOUT)
-    _compare_runs(one, two, p1, p2)
+    sub = copy.deepcopy(cfg)
+    sub["model"]["init_args"]["sub_batch_size"] = 2
+    cfgs = {"plain": cfg, "sub_batch_size": sub}
+    dirs = {name: (str(root / f"{name}_one"), str(root / f"{name}_two")) for name in cfgs}
+    out = {name: [] for name in cfgs}
+    for args in ((False, 1), (True, 2)):  # an epoch, then resume for a second
+        jobs = {name: dict(c, trainer={"max_epochs": 1}) if not args[0] else c for name, c in cfgs.items()}
+        ones = {name: W.fit(c, dirs[name][0], *args) for name, c in jobs.items()}
+        ranks = pdist.run_ranks(W.fits, 2, args=([(c, dirs[name][1], *args) for name, c in jobs.items()],),
+                                device="cpu", timeout=TIMEOUT)
+        for i, name in enumerate(jobs):
+            out[name].append((ones[name], [r[i] for r in ranks]))
+    return {name: (*dirs[name], out[name]) for name in cfgs}
+
+
+def _check_fit_runs(one, two, epochs):
+    """Each epoch's weights on both ranks against one process's, and the
+    metric records of both epochs (the resumed run appends to the first's)."""
+    for one_params, two_params in epochs[:-1]:
+        _compare_runs(one, two, one_params, two_params)
+    _compare_runs(one, two, *epochs[-1])
     assert sorted(os.listdir(two)) == sorted(os.listdir(one))
-    # resume from `last` on every rank for a second epoch
-    p1 = W.fit(cfg, one, True, 2)
-    p2 = pdist.run_ranks(W.fit, 2, args=(cfg, two, True, 2), timeout=TIMEOUT)
-    _compare_runs(one, two, p1, p2)
     assert [r["step"] for r in _records(two) if r["phase"] == "train_step"] == [1, 2, 3, 4, 5, 6]
+
+
+def test_fit_on_two_ranks_matches_one_process_and_resumes(fit_runs):
+    _check_fit_runs(*fit_runs["plain"])
+
+
+def test_fit_with_sub_batch_size_on_two_ranks_matches_one_process_and_resumes(fit_runs):
+    _check_fit_runs(*fit_runs["sub_batch_size"])
 
 
 class _StubTask:

@@ -12,7 +12,11 @@ chunks, an LSTM-8, a tiny SpectralDSTCN and a tiny Spectral2DCNN):
   the comparison does not read bf16 rounding;
 * `stretch_smooth`: `stretch_smooth_n_frames` 4 on the ground-truth LFO
   (the crop, `updates_per_batch` and the validity weights follow);
-* `train_steps` over two batches (JAX scans them in one program).
+* `train_steps` over two batches (JAX scans them in one program);
+* two consecutive `train_step`s of the unfrozen extractor with the
+  validity rules on and AdamW at lr 1e-5, as `configs/train_em_sim_flanger_
+  r7.yml` sets them: the second batch's LFOs and valid-LFO mask from the
+  extractor the first step trained, then the second step.
 
 Both sides are fed the same synthetic flanger batch (each package renders
 it) and the same initial weights: the port's seeded ones, carried to the
@@ -54,6 +58,7 @@ from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.models.spectral_2dcnn import Spectral2DCNN
 from mod_extraction_tpu_torch.models.tcn import SpectralDSTCN
 from mod_extraction_tpu_torch.train import tbptt_task as ttask
+from mod_extraction_tpu_torch.train.lfo_task import adamw
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
 
@@ -78,6 +83,7 @@ LOSS_ATOL, LOSS_RTOL = 1e-6, 1e-4
 # random-init extractor's flat LFO (its output itself is held at 1e-6)
 LFO_ATOL = {"unfrozen": 1e-4}
 UPDATE_REL, PARAM_ATOL = 5e-4, 2e-7
+UNFROZEN_SEED = 10  # two batches with valid and invalid LFOs under the initial extractor
 PARTS = {  # trained part -> (JAX params -> port state_dict, port state_dict -> JAX params)
     "effect": (flax_lstm_to_state_dict, lambda sd: {"params": lstm_state_dict_to_flax(sd)}),
     "param": (tcn_flax_to_state_dict, tcn_state_dict_to_flax),
@@ -93,21 +99,23 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _tasks(name: str):
-    """(JAX task, its state holding the port's initial weights, port task)."""
-    v = VARIANTS[name]
+def _tasks(name: str, lr: float = 1e-4, **task_kw):
+    """(JAX task, its state holding the port's initial weights, port task);
+    `task_kw` overrides the variant's task arguments."""
+    v = dict(VARIANTS[name])
+    v["task"] = {**v["task"], **task_kw}
     latent = 1 + (DSTCN["latent_dim"] if v.get("param") else 0)
     t_task = TBPTTEffectModelingTask(
         LSTMEffectModel(n_hidden=HID, latent_dim=latent, generator=torch.Generator().manual_seed(1)),
         RenderConfig(**RENDER), lfo_model=Spectral2DCNN(**TINY, seed=2) if v.get("lfo") else None,
         param_model=SpectralDSTCN(**DSTCN, seed=3) if v.get("param") else None,
-        device="cpu", **BASE, **v["task"],
+        optimizer=lambda params: adamw(params, lr=lr), device="cpu", **BASE, **v["task"],
     )
     j_task = JTask(
         effect_model=JLSTM(in_ch=1, out_ch=1, n_hidden=HID, latent_dim=latent),
         render_cfg=JRenderConfig(**RENDER), lfo_model=JSpectral2DCNN(**TINY) if v.get("lfo") else None,
         param_model=JSpectralDSTCN(**DSTCN) if v.get("param") else None,
-        optimizer=optax.adamw(1e-4, b1=0.8, b2=0.99), lstm_impl="scan", **BASE, **v["task"],
+        optimizer=optax.adamw(lr, b1=0.8, b2=0.99), lstm_impl="scan", **BASE, **v["task"],
     )
     params = {part: jax.tree.map(jnp.asarray, PARTS[part][1](sd)) for part, sd in _parts(t_task).items()}
     if not t_task.multi_params:
@@ -183,6 +191,32 @@ def test_variant_val_and_train_step_match_jax(name):
     _params_close(t_task, before, new_state.params)
     for part in set(before) - {"effect"}:  # the param model / extractor trained too
         assert any(not torch.equal(v, before[part][k]) for k, v in _parts(t_task)[part].items()), part
+
+
+def test_unfrozen_second_batch_matches_jax():
+    """Two `train_step`s of the unfrozen extractor in both packages on the
+    same two batches, with `discard_invalid_lfos` and lr 1e-5: the second
+    batch's LFOs from the extractor after the first step within LFO_ATOL,
+    its valid-LFO mask exactly (some LFOs valid, some not), then the second
+    step's metrics and parameters."""
+    j_task, state, t_task = _tasks("unfrozen", lr=1e-5, discard_invalid_lfos=True)
+    key = jax.random.PRNGKey(0)
+    first, second = _batches(2, seed=UNFROZEN_SEED)
+    new_state, mj = j_task.train_step(state, jax.tree.map(jnp.asarray, first), key)
+    _metrics_close(t_task.train_step(batch_to_torch(first, "cpu")), mj, "first train_step")
+    j_batch, t_batch = jax.tree.map(jnp.asarray, second), batch_to_torch(second, "cpu")
+    prep_t = t_task._prepare(t_batch)
+    prep_j = j_task._prepare(j_batch, key, lfo_params=new_state.params["lfo"])
+    mask = np.asarray(prep_j[5])
+    np.testing.assert_array_equal(prep_t[4].numpy(), mask)
+    assert 0 < mask.sum() < len(mask), mask
+    np.testing.assert_allclose(prep_t[3].numpy(), np.asarray(prep_j[3]), rtol=0, atol=LFO_ATOL["unfrozen"])
+    before = {p: {k: v.clone() for k, v in sd.items()} for p, sd in _parts(t_task).items()}
+    new_state, mj = j_task.train_step(new_state, j_batch, key)
+    mt = t_task.train_step(t_batch)
+    _metrics_close(mt, mj, "second train_step")
+    assert float(mt["valid_fraction"]) == mask.mean()
+    _params_close(t_task, before, new_state.params)
 
 
 def test_train_steps_match_jax():

@@ -167,14 +167,30 @@ def fit(config: dict, out_dir: str, resume: bool = False, max_epochs=None) -> di
     return to_numpy(task.trained_model.state_dict())
 
 
-def sub_batched_step_raises(params, batch) -> str:
+def fits(jobs: list) -> list:
+    """`fit(*job)` for each of `jobs`, in turn."""
+    return [fit(*job) for job in jobs]
+
+
+def sub_batched_step(params, batch, sub: int, mask_draws) -> dict:
+    """One train step of the LFO task with `sub_batch_size` `sub` on this
+    rank's shares of the sub-batches of `batch` (all of it without a
+    group), with `mask_draws` (a row of four a sub-batch): the metrics,
+    the parameters after the update and this rank's `mod_sig` rows (which
+    rows it held)."""
+    rank, size, _ = world()
     task = lfo_task(params)
-    task.sub_batch_size = 4
-    try:
-        task.train_step(_rows(batch))
-    except NotImplementedError as e:
-        return str(e)
-    return ""
+    task.sub_batch_size = sub
+    local = batch_to_torch(shard_batch(batch, rank, size, sub), "cpu")
+    m = task.train_step(local, mask_draws=torch.as_tensor(mask_draws, dtype=torch.float32))
+    return dict(metrics={k: float(v) for k, v in m.items()}, params=to_numpy(task.trained_model.state_dict()),
+                rows=local["mod_sig"].numpy())
+
+
+def sub_batched_steps(cases: dict) -> dict:
+    """`sub_batched_step` for each of `cases` ({name: (params, batch, sub,
+    mask_draws)})."""
+    return {name: sub_batched_step(*args) for name, args in cases.items()}
 
 
 def environment() -> dict:
