@@ -41,6 +41,7 @@ from mod_extraction_tpu_torch.ops import lstm_kernels  # noqa: F401  (registers 
 from mod_extraction_tpu_torch.paths import ensure_dir
 from mod_extraction_tpu_torch.train.checkpoints import save_weights
 from mod_extraction_tpu_torch.utils.device import resolve_device
+from mod_extraction_tpu_torch.utils.spans import span
 
 State = Dict[str, torch.Tensor]
 
@@ -58,13 +59,20 @@ def knob_tensors(device, *values) -> Tuple[torch.Tensor, ...]:
 
 def _process_np(proc, state, x: np.ndarray, lfo_rate=0.2, lfo_depth=0.6667, stereo_offset=0.0):
     """A processor's `process_np`: numpy in, numpy out, as a plugin host
-    drives it; the state stays on the processor's device."""
-    with torch.no_grad():
-        y, state = proc.process(
-            state, torch.as_tensor(np.asarray(x, np.float32), device=proc.device),
-            *knob_tensors(proc.device, lfo_rate, lfo_depth, stereo_offset),
-        )
-    return y.cpu().numpy(), state
+    drives it; the state stays on the processor's device.  Its spans
+    (`utils/spans.py`): `processor.call` over `processor.input` (the
+    buffer and the knobs to the device), `processor.run` (the program) and
+    `processor.output` (the wait for the device and the copy back), timed
+    on the host alone: no reader wants their device time, and their CUDA
+    events would land in the call's own time."""
+    with span("processor.call", device=False), torch.no_grad():
+        with span("processor.input", device=False):
+            xt = torch.as_tensor(np.asarray(x, np.float32), device=proc.device)
+            knobs = knob_tensors(proc.device, lfo_rate, lfo_depth, stereo_offset)
+        with span("processor.run", device=False):
+            y, state = proc.process(state, xt, *knobs)
+        with span("processor.output", device=False):
+            return y.cpu().numpy(), state
 
 
 class StreamingEffectModel(nn.Module):

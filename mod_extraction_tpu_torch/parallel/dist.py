@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mod_extraction_tpu_torch.utils.spans import span
+
 
 class World(NamedTuple):
     rank: int
@@ -170,7 +172,7 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the ranks (a new tensor; `t` without a group)."""
     if not is_distributed():
         return t
-    with torch.profiler.record_function("dist.all_reduce"):
+    with span("dist.all_reduce"):
         t = t.clone()
         dist.all_reduce(t)
     return t
@@ -220,7 +222,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    with torch.profiler.record_function("dist.all_reduce"):
+    with span("dist.all_reduce"):
         flat = torch._utils._flatten_dense_tensors(grads)
         dist.all_reduce(flat)
         flat /= dist.get_world_size()

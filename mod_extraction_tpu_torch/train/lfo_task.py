@@ -32,6 +32,7 @@ from mod_extraction_tpu_torch.parallel.dist import (
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
+from mod_extraction_tpu_torch.utils.spans import span
 
 
 def center_crop_last(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -200,9 +201,10 @@ class LFOExtractionTask(TrainableTask):
     def _loss(self, batch, corpus, mask_draws, lfo_draws=None, weights=None):
         with torch.no_grad():
             dry, wet, mod_frames, fx = render_batch(batch, self.render_cfg, corpus)
-        mod_hat, _ = self._extract(dry, wet, fx, mask_draws, lfo_draws)
-        mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
-        return self.losses(mod_hat, mod_gt, weights, sum_over_ranks=rank_sum())
+        with span("lfo.forward"):
+            mod_hat, _ = self._extract(dry, wet, fx, mask_draws, lfo_draws)
+            mod_hat, mod_gt = self._postprocess(mod_hat, mod_frames)
+            return self.losses(mod_hat, mod_gt, weights, sum_over_ranks=rank_sum())
 
     def train_step(
         self,
@@ -218,20 +220,28 @@ class LFOExtractionTask(TrainableTask):
         rows (with `sub_batch_size`, its shares of the sub-batches:
         `shard_batch(..., sub_batch_size=)`): every rank draws the same
         SpecAugment numbers, the gradients are averaged over the ranks
-        before the update, and the metrics are those of the global batch."""
+        before the update, and the metrics are those of the global batch.
+
+        Its spans (`utils/spans.py`): `lfo.step` over `render`,
+        `lfo.forward` (extraction, post-processing, losses), `lfo.backward`
+        and `lfo.update` (all-reduce, AdamW, schedule); the sub-batched
+        step has the first three per sub-batch."""
         assert self.has_params, "the RandomLFO baseline has no parameters to train"
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.sub_batch_size is not None:
-            metrics = self._backward_subbatched(batch, corpus, mask_draws)
-        else:
-            if mask_draws is None:
-                mask_draws = torch.rand(4, generator=self.mask_generator)
-            loss, metrics = self._loss(batch, corpus, mask_draws)
-            loss.backward()
-        all_reduce_grads(self.model.parameters())
-        self._update()
-        return reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        with span("lfo.step"):
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            if self.sub_batch_size is not None:
+                metrics = self._backward_subbatched(batch, corpus, mask_draws)
+            else:
+                if mask_draws is None:
+                    mask_draws = torch.rand(4, generator=self.mask_generator)
+                loss, metrics = self._loss(batch, corpus, mask_draws)
+                with span("lfo.backward"):
+                    loss.backward()
+            with span("lfo.update"):
+                all_reduce_grads(self.model.parameters())
+                self._update()
+            return reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     def _backward_subbatched(self, batch, corpus, mask_draws):
         """Gradients (left in `.grad`) and metrics averaged over the
@@ -263,7 +273,8 @@ class LFOExtractionTask(TrainableTask):
                 ones = torch.ones(hi - lo, device=self.device)
                 weights = BatchWeights(ones, torch.tensor(sub / size, device=self.device))
             loss, metrics = self._loss(sb, corpus, mask_draws[i], weights=weights)
-            (loss / n).backward()  # .grad accumulates the mean gradient
+            with span("lfo.backward"):
+                (loss / n).backward()  # .grad accumulates the mean gradient
             metrics = {k: v.detach() / n for k, v in metrics.items()}
             mean = metrics if mean is None else {k: mean[k] + v for k, v in metrics.items()}
         return mean

@@ -40,6 +40,7 @@ from mod_extraction_tpu_torch.parallel.dist import (
 )
 from mod_extraction_tpu_torch.paths import ensure_dir
 from mod_extraction_tpu_torch.train.checkpoints import CheckpointManager
+from mod_extraction_tpu_torch.utils import spans
 
 log = logging.getLogger(__name__)
 
@@ -143,9 +144,10 @@ class Trainer:
     iterations that start after `profile_steps[0]` and before
     `profile_steps[1]` steps (default 10..15): each iteration is a step, its
     log line and the wait for the next batch.  The window goes to
-    `profile_dir` as a Chrome trace and as `<run_name>_profile.json`, and its
-    wall time, device-busy time and idle share to the metric log; the time
-    spent closing it is left out of the logged step times.
+    `profile_dir` as a Chrome trace and as `<run_name>_profile.json` (with
+    the summary of its spans, `utils/spans.py`), and its wall time,
+    device-busy time and idle share to the metric log; the time spent
+    closing it is left out of the logged step times.
 
     `media_callback(trainer, batch, epoch)` (`utils/plotting.py`) gets val
     batch 0 on rank 0 in every `media_every_n_epochs`-th epoch (epoch 0
@@ -237,7 +239,7 @@ class Trainer:
         threading.Thread(target=worker, daemon=True).start()
         try:
             while True:
-                with torch.profiler.record_function("trainer.loader_wait"):
+                with spans.span("trainer.loader_wait"):
                     b = q.get()
                 if b is None:
                     if err:
@@ -261,13 +263,13 @@ class Trainer:
         recorded after the copy is waited on by the compute stream before
         the step, and `record_stream` keeps the allocator from reusing a
         batch's memory before the compute stream is done with it.  The host's
-        wait for the loader and the copies are profiler ranges
-        (`trainer.loader_wait`, `trainer.batch_copy`)."""
+        wait for the loader and the copies are spans (`utils/spans.py`:
+        `trainer.loader_wait`, `trainer.batch_copy`)."""
         use_stream = self.device.type == "cuda" and not self.sync_copies
         host = self._host_batches(loader, epoch, pin=use_stream, sub_batch_size=sub_batch_size)
         if not use_stream:
             for b in host:
-                with torch.profiler.record_function("trainer.batch_copy"):
+                with spans.span("trainer.batch_copy"):
                     b = _tree_map(lambda t: t.to(self.device), b)
                 yield b
             return
@@ -275,7 +277,7 @@ class Trainer:
         copy_stream = torch.cuda.Stream(self.device)
 
         def issue(b):
-            with torch.cuda.stream(copy_stream), torch.profiler.record_function("trainer.batch_copy"):
+            with torch.cuda.stream(copy_stream), spans.span("trainer.batch_copy"):
                 d = _tree_map(lambda t: t.to(self.device, non_blocking=True), b)
                 done = torch.cuda.Event()
                 done.record(copy_stream)
@@ -345,22 +347,20 @@ class Trainer:
         prof, self._profiler = self._profiler, None
         prof.__exit__(None, None, None)
         busy_ms, events = device_busy(prof)
-        # the host's side of the ranges (on the card, a range with device work
-        # in it is listed a second time, as a device annotation)
-        host = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
-                if e.key in ("trainer.loader_wait", "trainer.batch_copy")
-                and e.device_type == torch.autograd.DeviceType.CPU}
+        by_span = spans.summary()  # the window's spans, host and device ms
+        spans.clear()
         summary = {
             "phase": "profile",
             "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "loader_wait_ms": host.get("trainer.loader_wait", 0.0),
-            "batch_copy_ms": host.get("trainer.batch_copy", 0.0),
+            "loader_wait_ms": by_span.get("trainer.loader_wait", {}).get("host_ms", 0.0),
+            "batch_copy_ms": by_span.get("trainer.batch_copy", {}).get("host_ms", 0.0),
         }
         self._log(summary)
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
         summary["top_device_ms"] = [[e.key, e.self_device_time_total / 1e3, e.count] for e in top]
+        summary["spans"] = by_span
         out = ensure_dir(self.profile_dir)
         with open(os.path.join(out, f"{self.run_name}_profile.json"), "w") as f:
             json.dump(summary, f, indent=1)

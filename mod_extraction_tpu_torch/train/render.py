@@ -24,6 +24,7 @@ from mod_extraction_tpu_torch.data.constants import (
 from mod_extraction_tpu_torch.ops.fx import apply_phaser, apply_tremolo, phaser_freq_max
 from mod_extraction_tpu_torch.ops.fx_kernels import flanger
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
+from mod_extraction_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -74,8 +75,13 @@ def render_batch(
 
     Batches from a device corpus carry `dry_idx`/`dry_gain` (and maybe
     `wet_*`) instead of audio; their chunks are gathered from `corpus`
-    (int16 PCM is dequantized, then scaled by the gain)."""
+    (int16 PCM is dequantized, then scaled by the gain).  Both stages'
+    steps render here, in the span `render`."""
+    with span("render"):
+        return _render(batch, cfg, corpus)
 
+
+def _render(batch: Dict, cfg: RenderConfig, corpus: torch.Tensor | None):
     def dequant(a):
         if a.dtype == torch.int16:
             return a.to(torch.float32) / 32768.0

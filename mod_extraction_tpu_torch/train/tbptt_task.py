@@ -73,6 +73,7 @@ from mod_extraction_tpu_torch.train.lfo_task import (
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
+from mod_extraction_tpu_torch.utils.spans import span
 
 
 def _global_weights(weights: torch.Tensor) -> BatchWeights:
@@ -268,35 +269,49 @@ class TBPTTEffectModelingTask(TrainableTask):
         rows: each chunk's gradients are averaged over the ranks before its
         update, the weighted losses divide by the global weight sum (summed
         over the ranks once a batch), and the metrics are those of the
-        global batch."""
-        em = self.effect_model
-        em.train()
-        with torch.no_grad():
-            full = render_batch(batch, self.render_cfg, corpus)
-        dry, wet, mod_sr, _, weights = self._condition(*full, lfo_draws)
-        bw, ranks = _global_weights(weights), rank_sum()
-        w, s = self.warmup_n_samples, self.step_n_samples
-        t = dry.shape[-1]
-        n_chunks = (t - w) // s
-        with torch.no_grad():
-            h0 = lstm_init_state(dry.shape[0], em.n_hidden, self.device)
-            _, hidden = em(dry[:, :, :w], self._latent(mod_sr[:, :, :w], wet), h0)
-        ys = []
-        for i in range(n_chunks):
-            a, e = w + i * s, w + (i + 1) * s
-            self.optimizer.zero_grad(set_to_none=True)
-            mod_c = (self._chunk_mod_sr(full[0], full[1], t) if self.trainable_lfo else mod_sr)[:, :, a:e]
-            y, new_hidden = em(dry[:, :, a:e], self._latent(mod_c, wet), hidden)
-            loss, _ = self.losses(y, wet[:, :, a:e], bw, ranks)
-            loss.backward()
-            all_reduce_grads(self.trained_model.parameters())
-            self._update()
-            hidden = detach_state(new_hidden)
-            ys.append(y.detach())
-        with torch.no_grad():
-            _, metrics = self.losses(torch.cat(ys, dim=-1), wet[:, :, w : w + n_chunks * s], bw, ranks)
-        metrics["valid_fraction"] = weights.mean()
-        return reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        global batch.
+
+        Its spans (`utils/spans.py`): `tbptt.step` over `render`,
+        `tbptt.condition` (extraction, smoothing and stretch, crop,
+        validity, upsampling), `tbptt.warmup` (K3), one `tbptt.chunk` per
+        update, each over `tbptt.forward` (latent, K4, loss),
+        `tbptt.backward` (K5) and `tbptt.update` (all-reduce, AdamW,
+        schedule, detach), and `tbptt.metrics`."""
+        with span("tbptt.step"):
+            em = self.effect_model
+            em.train()
+            with torch.no_grad():
+                full = render_batch(batch, self.render_cfg, corpus)
+            with span("tbptt.condition"):
+                dry, wet, mod_sr, _, weights = self._condition(*full, lfo_draws)
+                bw, ranks = _global_weights(weights), rank_sum()
+            w, s = self.warmup_n_samples, self.step_n_samples
+            t = dry.shape[-1]
+            n_chunks = (t - w) // s
+            with span("tbptt.warmup"), torch.no_grad():
+                h0 = lstm_init_state(dry.shape[0], em.n_hidden, self.device)
+                _, hidden = em(dry[:, :, :w], self._latent(mod_sr[:, :, :w], wet), h0)
+            ys = []
+            for i in range(n_chunks):
+                with span("tbptt.chunk"):
+                    a, e = w + i * s, w + (i + 1) * s
+                    self.optimizer.zero_grad(set_to_none=True)
+                    with span("tbptt.forward"):
+                        mod_c = (self._chunk_mod_sr(full[0], full[1], t) if self.trainable_lfo
+                                 else mod_sr)[:, :, a:e]
+                        y, new_hidden = em(dry[:, :, a:e], self._latent(mod_c, wet), hidden)
+                        loss, _ = self.losses(y, wet[:, :, a:e], bw, ranks)
+                    with span("tbptt.backward"):
+                        loss.backward()
+                    with span("tbptt.update"):
+                        all_reduce_grads(self.trained_model.parameters())
+                        self._update()
+                        hidden = detach_state(new_hidden)
+                        ys.append(y.detach())
+            with span("tbptt.metrics"), torch.no_grad():
+                _, metrics = self.losses(torch.cat(ys, dim=-1), wet[:, :, w : w + n_chunks * s], bw, ranks)
+                metrics["valid_fraction"] = weights.mean()
+                return reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     def train_steps(
         self, batches: Sequence[Dict], corpus: Optional[torch.Tensor] = None,

@@ -133,14 +133,30 @@ def profile_step(step) -> tuple:
     return wall_ms, busy_ms, events
 
 
+def _device_work(e) -> bool:
+    """A kernel, copy or memset on the device: not a range (a span, or one
+    the optimizer opens, "Optimizer.step#..."), which the profiler lists a
+    second time on the device with the time of the work inside it."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer."))
+
+
+def merged_length(intervals) -> float:
+    """The length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def device_busy(prof) -> tuple:
     """(device-busy ms, the device events by name) of a finished
-    torch.profiler run: kernels and copies only; a range the optimizer opens
-    ("Optimizer.step#...") is reported with the device time of the kernels
-    inside it, a second time."""
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-        and not e.key.startswith("Optimizer.")
-    ]
-    return sum(e.self_device_time_total for e in events) / 1e3, events
+    torch.profiler run: the time in which a kernel or copy ran, with
+    overlapping work (a side stream's copies beside the compute stream's
+    kernels) merged, not summed; the events by name with their self device
+    times (ranges left out)."""
+    busy_us = merged_length((e.time_range.start, e.time_range.end) for e in prof.events() if _device_work(e))
+    events = [e for e in prof.key_averages() if _device_work(e) and e.self_device_time_total > 0]
+    return busy_us / 1e3, events

@@ -39,6 +39,7 @@ from mod_extraction_tpu_torch import cli as tcli
 from mod_extraction_tpu_torch.data.wav import wav_write
 from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, flax_to_state_dict
 from mod_extraction_tpu_torch.train.loop import Trainer
+from mod_extraction_tpu_torch.utils import spans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR, N = 8000, 2000  # LFO fit
@@ -293,7 +294,8 @@ def test_steps_per_dispatch_logs_every_step(lfo_setup, tmp_path):
 def test_profile_window(lfo_setup, tmp_path):
     """`custom.profile_dir` with `profile_steps=(1, 2)`: the iteration after
     the first step is profiled; its summary goes to the metric log and, with
-    the device's busiest events, to `<run>_profile.json` beside the trace."""
+    the device's busiest events and its spans, to `<run>_profile.json`
+    beside the trace."""
     root, corpus, weights = lfo_setup
     cfg = lfo_config(corpus, weights, profile_dir=str(tmp_path / "prof"))
     tcli.fit(cfg, out_dir=str(tmp_path / "out"), device="cpu", profile_steps=(1, 2))
@@ -308,6 +310,10 @@ def test_profile_window(lfo_setup, tmp_path):
         saved = json.load(f)
     assert saved["wall_ms"] == prof["wall_ms"] and saved["top_device_ms"] == []
     assert glob.glob(str(tmp_path / "prof" / "*_trace.json"))
+    # the window's spans: its step and its loader wait, read from the span store, then cleared
+    assert saved["spans"]["lfo.step"]["count"] == 1
+    assert saved["spans"]["trainer.loader_wait"]["host_ms"] == prof["loader_wait_ms"]
+    assert spans.records() == []
 
 
 def test_resume_wins_over_warm_start_and_continues_the_steps(lfo_setup, tmp_path):
