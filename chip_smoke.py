@@ -33,8 +33,10 @@ points at full width:
   egfx LSTM-64 and sim_chorus LSTM-160 effect models, mono and stereo,
   driven over random buffers of 1-2048 samples (K3, through its
   `torch.library` operator), held against one full call, against the CPU,
-  and through the `torch.export` artifact reloaded on the card; K3 timed
-  per buffer beside its latency floor, and the real-time factors;
+  and through the `torch.export` artifact reloaded on the card (its
+  `process_np` a CUDA graph replay, held bit for bit against its eager
+  `process`); K3 timed per buffer beside its latency floor, the real-time
+  factors and the artifact's host ms a call, replayed and eager;
 * `bench_torch.py`'s two measurements: stage 1 at batch 99 and TBPTT at 32,
   the batches of the two configs the fit phases train;
 * `fit stage 1` and `fit stage 2`, the training entry point
@@ -1618,6 +1620,59 @@ def serve_buffers(rng, total: int) -> list:
     return sizes
 
 
+def serve_buffers_thrice(rng, total: int) -> list:
+    """As `serve_buffers`, each length three times in a row (the last run
+    cut to the total): the loaded artifact runs a length's first call
+    eagerly, captures its graph at the second and replays it at the
+    third."""
+    sizes = []
+    for n in serve_buffers(rng, total):
+        sizes += [n] * 3
+    cut, out = total, []
+    for n in sizes:
+        if cut <= 0:
+            break
+        out.append(min(n, cut))
+        cut -= out[-1]
+    return out
+
+
+def k3_device_launches(prof) -> int:
+    """K3's kernels (`lstm_fwd_*`) among a profile's device events: each
+    launch, whether issued alone or by a graph replay."""
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "lstm_fwd_" in e.name)
+
+
+def profiled_artifact_drive(lk, art, x, sizes, knobs) -> dict:
+    """`drive` of a loaded artifact under the profiler, counted: its calls,
+    runs of one length, replays and captures (the spans), K3's Python counter
+    (an eager call ticks it once, a capture twice: its eager run and the
+    captured call; a replay not at all) and K3's device events (once a call,
+    once more a capture); `counts_ok` whether they agree, `same` whether
+    the drive equals the eager program (`drive_eager`) bit for bit."""
+    from mod_extraction_tpu_torch.utils import spans
+
+    lk.reset_launch_counts()
+    spans.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        y, state = drive(art, x, sizes, knobs)
+    found = spans.summary()
+    spans.clear()
+    replays, captures = (found.get(f"processor.{k}", {"count": 0})["count"] for k in ("replay", "capture"))
+    python, device_k3 = dict(lk.LAUNCHES), k3_device_launches(prof)
+    runs = sum(1 for i, n in enumerate(sizes) if i == 0 or n != sizes[i - 1])
+    y_eager, s_eager = drive_eager(art, x, sizes, knobs)
+    calls = len(sizes)
+    return dict(
+        y=y, state=state, calls=calls, runs=runs, replays=replays, device_k3=device_k3,
+        counts=f"{calls - replays} eager, {replays} replays, {captures} captures; K3 in Python {python['lstm_forward']}",
+        counts_ok=(calls - runs <= replays <= calls and captures <= min(runs, replays) and device_k3 == calls + captures
+                   and python == dict(lstm_forward=calls - replays + 2 * captures, lstm_train_forward=0,
+                                      lstm_backward=0)),
+        same=bool(np.array_equal(y, y_eager)) and all(torch.equal(state[k], s_eager[k]) for k in ("h", "c", "phase")))
+
+
 def drive(proc, x, sizes, knobs):
     """Buffer by buffer, numpy in and out: (y, final state)."""
     state, outs, i = proc.init_state(), [], 0
@@ -1626,6 +1681,89 @@ def drive(proc, x, sizes, knobs):
         outs.append(y)
         i += n
     return np.concatenate(outs, axis=-1), state
+
+
+def drive_eager(proc, x, sizes, knobs):
+    """As `drive`, through the tensor API `process`: the eager program."""
+    from mod_extraction_tpu_torch.export.streaming import knob_tensors
+
+    k = knob_tensors(proc.device, knobs["lfo_rate"], knobs["lfo_depth"], knobs.get("stereo_offset", 0.0))
+    state, outs, i = proc.init_state(), [], 0
+    with torch.no_grad():
+        for n in sizes:
+            y, state = proc.process(state, torch.as_tensor(x[:, i : i + n], device=proc.device), *k)
+            outs.append(y.cpu().numpy())
+            i += n
+    return np.concatenate(outs, axis=-1), state
+
+
+def host_ms_a_call(call, proc, buf, n: int) -> float:
+    """Host ms of `call(state, buf, **SERVE_KNOBS)` (numpy in and out), the
+    mean over `n` calls after two untimed (the artifact's eager first call
+    of a shape and its capture)."""
+    _, state = call(proc.init_state(), buf, **SERVE_KNOBS)
+    _, state = call(state, buf, **SERVE_KNOBS)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, state = call(state, buf, **SERVE_KNOBS)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def artifact_first_calls_ms(art, rng) -> dict:
+    """Host ms of a fresh artifact's first three calls of each buffer length
+    (eager; capture and replay; replay), stereo, one length after another."""
+    state, out = art.init_state(), {}
+    for t in (64, 128, 512, SERVE_MAX_BUFFER):
+        buf = (0.1 * rng.standard_normal((2, t))).astype(np.float32)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, state = art.process_np(state, buf, **SERVE_KNOBS)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[t] = tuple(ms)
+    return out
+
+
+def artifact_variable_drive_ms(load, eager_call, rng, seconds: int = 4) -> dict:
+    """Host ms a call over `seconds` of stereo audio in random buffers of
+    1-SERVE_MAX_BUFFER samples, a host that changes its buffer size every
+    call: a freshly loaded (`load()`) artifact's `process_np` against the
+    eager program (`eager_call`) over the same buffers, in the order
+    process_np, eager, eager, process_np (the second process_np on another
+    fresh copy, so that no shape carries over), each copy first driven
+    once, untimed, by the eager program; the means of the two turns a side.
+    Then the replays and captures of the drive on a third fresh copy,
+    counted under the profiler."""
+    from mod_extraction_tpu_torch.utils import spans
+
+    sizes = serve_buffers(rng, seconds * SERVE_SAMPLES)
+    x = rng.uniform(-0.5, 0.5, (2, sum(sizes))).astype(np.float32)
+
+    def timed(call, proc) -> float:
+        state, i = proc.init_state(), 0
+        t0 = time.perf_counter()
+        for n in sizes:
+            _, state = call(proc, state, x[:, i : i + n], **SERVE_KNOBS)
+            i += n
+        return (time.perf_counter() - t0) * 1e3 / len(sizes)
+
+    def process_np(proc, *a, **k):
+        return proc.process_np(*a, **k)
+
+    arts = [load(), load()]
+    for art in arts:
+        timed(eager_call, art)
+    turns = [timed(process_np, arts[0]), timed(eager_call, arts[0]), timed(eager_call, arts[0]),
+             timed(process_np, arts[1])]
+    out = {"calls": len(sizes), "process_np_ms": (turns[0] + turns[3]) / 2, "eager_ms": (turns[1] + turns[2]) / 2,
+           "turns_ms": turns}
+    spans.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        drive(load(), x, sizes, SERVE_KNOBS)
+    found = spans.summary()
+    out.update({k: found.get(f"processor.{k[:-1]}", {"count": 0})["count"] for k in ("replays", "captures")})
+    spans.clear()
+    return out
 
 
 def load_script(name: str):
@@ -1658,6 +1796,7 @@ def run_serving(lk, rng) -> dict:
     bts = load_script("bench_torch_streaming")
     from mod_extraction_tpu_torch.export.streaming import (
         StreamingEffectModel,
+        _process_np,
         export_streaming_model,
         load_compiled_processor,
     )
@@ -1694,11 +1833,14 @@ def run_serving(lk, rng) -> dict:
                     str(weights), tmp, f"m{n_ch}_{sm.n_hidden}",
                     metadata_overrides={"is_input_mono": n_ch == 1},
                 )
-                art = load_compiled_processor(target, device="cuda")
+                # the artifact over random buffers (held against the full call, as
+                # the live path), then a fresh copy over each length three times
+                # in a row (its replays); each against its eager program
                 art_sizes = serve_buffers(rng, SERVE_SAMPLES)
-                lk.reset_launch_counts()
-                y_art, s_art = drive(art, x, art_sizes, knobs)
-                art_counted = dict(lk.LAUNCHES)
+                ra = profiled_artifact_drive(lk, load_compiled_processor(target, device="cuda"), x, art_sizes, knobs)
+                rt = profiled_artifact_drive(lk, load_compiled_processor(target, device="cuda"), x,
+                                             serve_buffers_thrice(rng, SERVE_SAMPLES), knobs)
+                y_art, s_art = ra["y"], ra["state"]
                 cpu = StreamingEffectModel(str(weights), n_channels=n_ch, device="cpu")
                 y_cpu, _ = cpu.process_np(cpu.init_state(), x, **knobs)
                 chunk_err = max(float(np.abs(y_chunk - y_full).max()),
@@ -1711,14 +1853,26 @@ def run_serving(lk, rng) -> dict:
                       f"samples: chunked vs full {chunk_err:.3e} (limit {STREAM_ATOL}); card vs CPU "
                       f"{cpu_err:.3e} (limit {KERNEL_TOL}); reloaded .pt2 on the card ({len(art_sizes)} "
                       f"buffers) vs live {art_err:.3e} (limit {STREAM_ATOL}); K3 launches {counted['lstm_forward']}"
-                      f" / artifact {art_counted['lstm_forward']}; phase {s_chunk['phase'].item():.6f}")
+                      f" / artifact {ra['device_k3']} on the device ({ra['counts']}); phase "
+                      f"{s_chunk['phase'].item():.6f}")
+                print(f"  artifact, each length thrice ({rt['calls']} buffers): K3 {rt['device_k3']} on the device "
+                      f"({rt['counts']}); vs full, not held to it: y {float(np.abs(rt['y'] - y_full).max()):.3e}, "
+                      f"share of the cell-state limit {c_errors(rt['state']['c'], s_full['c'])[2]:.3f}; both "
+                      f"drives bit for bit their eager program: {ra['same']}, {rt['same']}")
                 print(f"  cell state, chunked / artifact vs full: max |dc| {c_chunk[0]:.3e} / {c_art[0]:.3e}, "
                       f"|dc|/|c| there {c_chunk[1]:.3e} / {c_art[1]:.3e}, share of the limit {STREAM_ATOL} + "
                       f"{STREAM_C_RTOL} |c| used {c_chunk[2]:.3f} / {c_art[2]:.3f}; max |c| "
                       f"{s_full['c'].abs().max().item():.3f}")
-                for c, n in ((counted, len(sizes)), (art_counted, len(art_sizes))):
-                    if c != dict(lstm_forward=n, lstm_train_forward=0, lstm_backward=0):
-                        fail(f"serving {what}: launches {c}, expected K3 once for each of {n} buffers")
+                if counted != dict(lstm_forward=len(sizes), lstm_train_forward=0, lstm_backward=0):
+                    fail(f"serving {what}: launches {counted}, expected K3 once for each of {len(sizes)} buffers")
+                for r in (ra, rt):
+                    if not r["counts_ok"]:
+                        fail(f"serving {what}: artifact over {r['calls']} buffers in {r['runs']} runs of one "
+                             f"length: {r['counts']}; expected a replay at each call of a length seen before, at "
+                             f"most one capture a run, K3 in Python once an eager call and twice a capture, and "
+                             f"on the device once a call and once more a capture")
+                    if not r["same"]:
+                        fail(f"serving {what}: the artifact's process_np differs from its eager program")
                 if not np.isfinite(y_chunk).all() or y_chunk.shape != x.shape:
                     fail(f"serving {what}: output of shape {y_chunk.shape}, finite {np.isfinite(y_chunk).all()}")
                 if not chunk_err <= STREAM_ATOL:
@@ -1731,12 +1885,22 @@ def run_serving(lk, rng) -> dict:
                     fail(f"serving {what}: carried cell state, chunked {c_chunk}, artifact {c_art}")
                 if not abs(s_chunk["phase"].item() - s_full["phase"].item()) <= 1e-5:
                     fail(f"serving {what}: carried phase {s_chunk['phase'].item()} vs {s_full['phase'].item()}")
-                launches[sm.n_hidden] += counted["lstm_forward"] + art_counted["lstm_forward"]
+                launches[sm.n_hidden] += counted["lstm_forward"] + ra["device_k3"] + rt["device_k3"]
 
         # -- times: stereo, H 64 (the egfx model), per buffer size
         sm = StreamingEffectModel(str(SERVE_WEIGHTS[0][1]), n_channels=2, device="cuda")
-        art = load_compiled_processor(export_streaming_model(sm.model, tmp, "timed"), device="cuda")
+        timed = export_streaming_model(sm.model, tmp, "timed")
+        art = load_compiled_processor(timed, device="cuda")
         rows = bts.measure(sm, art, SERVE_BUFFERS, 2.0, rng)
+        first_calls = artifact_first_calls_ms(load_compiled_processor(timed, device="cuda"), rng)
+        variable = artifact_variable_drive_ms(lambda: load_compiled_processor(timed, device="cuda"), _process_np, rng)
+    for t, (eager_ms, capture_ms, replay_ms) in first_calls.items():
+        print(f"[serving artifact, stereo H 64, buffer {t}] host ms of a new shape's calls: first (eager) "
+              f"{eager_ms:.4f}, second (capture and replay) {capture_ms:.4f}, third (replay) {replay_ms:.4f}")
+    print(f"[serving artifact, stereo H 64, random buffers 1-{SERVE_MAX_BUFFER}] host ms a call over "
+          f"{variable['calls']} calls ({variable['replays']} replays, {variable['captures']} captures): "
+          f"process_np {variable['process_np_ms']:.4f}, eager {variable['eager_ms']:.4f} (turns "
+          f"{', '.join(f'{v:.4f}' for v in variable['turns_ms'])})")
     # K3's cycles a step at B 32, T 1024, and the latency floor it sets on a
     # buffer of T dependent steps
     a32 = lstm_inputs(rng, BATCH, TBPTT_CHUNK, 64)
@@ -1764,13 +1928,20 @@ def run_serving(lk, rng) -> dict:
         library_ms = cuda_ms_queued(lib_fwd, 50, spin_ms=2 * 50 * library_call_ms)
         n_ops, n_bytes = lstm_ops_bytes(2, t, 64, 2, 1)
         t_ops, t_bytes = n_ops / F32_OPS_S * 1e3, n_bytes / HBM_BYTES_S * 1e3
+        buf = (0.1 * rng.standard_normal((2, t))).astype(np.float32)
+        n_calls = row["n_buffers"]
+        replay_ms = host_ms_a_call(art.process_np, art, buf, n_calls)
+        eager_ms = host_ms_a_call(lambda *a, **k: _process_np(art, *a, **k), art, buf, n_calls)
         shape = dict(b=2, t=t, hid=64, ms=row["k3_ms"], profiled_launches=row["k3_profiled_launches"],
                      fenced_ms=row["k3_fenced_ms"], queued_ms=row["k3_queued_ms"], call_ms=row["k3_call_ms"],
                      dispatch_ms=row["k3_dispatch_ms"], plain_ms=plain_ms, max_abs_err=err,
                      bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
                      latency_floor_ms=t * cycles / mhz / 1e3, library_ms=library_ms,
-                     library_call_ms=library_call_ms)
+                     library_call_ms=library_call_ms, artifact_replay_call_ms=replay_ms,
+                     artifact_eager_call_ms=eager_ms)
         shapes.append(shape)
+        print(f"[serving artifact, stereo H 64, buffer {t}] host ms a call over {n_calls} calls: replay "
+              f"{replay_ms:.4f}, eager {eager_ms:.4f} ({eager_ms / replay_ms:.2f}x)")
         print(f"[serving, stereo H 64, buffer {t}] per-call RTF {row['rtf_per_call']:.2f}  sustained RTF "
               f"{row['rtf_sustained']:.2f} (Python loop of device calls, one sync)  artifact per-call RTF "
               f"{row['rtf_artifact_per_call']:.2f}  K3 device ms={row['k3_ms']:.4f} ({row['k3_profiled_launches']} "
@@ -1789,7 +1960,8 @@ def run_serving(lk, rng) -> dict:
           f"({worst_c[1]:.3e} of |c| there)")
     h160 = time_k3_h160(lk, rng)
     return dict(launches=launches, cycles_per_step_b32=cycles, shapes=shapes, rtf=rows,
-                max_c_err=worst_c[0], c_rel_err_there=worst_c[1], h160=h160)
+                max_c_err=worst_c[0], c_rel_err_there=worst_c[1], h160=h160,
+                artifact_first_calls_ms=first_calls, artifact_variable_drive=variable)
 
 
 def time_k3_h160(lk, rng) -> list:

@@ -18,6 +18,13 @@ channel, and the phase of its cos LFO.  Channels are the batch of K3
   plain version, and the card, where it launches the kernel
   (`compiled_artifact_platforms: ["cpu", "cuda"]`).
 
+On the card, `CompiledStreamingProcessor.process_np` replays the loaded
+program as a CUDA graph for a buffer shape it has seen before (among the
+last `GRAPH_SHAPES`): one pinned copy in (the buffer and the knobs), the
+carried state copied in, the replay, one copy of the new state and one
+copy out.  A shape's first call, the tensor API `process`, the live
+`StreamingEffectModel` and the CPU run the program eagerly.
+
 Everything runs on the card unless the caller asks for the CPU.
 """
 
@@ -28,6 +35,7 @@ import io
 import json
 import math
 import os
+from collections import OrderedDict
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -184,9 +192,39 @@ def serialize_streaming_processor(sm: StreamingEffectModel) -> bytes:
     return buf.getvalue()
 
 
+GRAPH_SHAPES = 8  # buffer shapes a processor remembers, least recently used out
+
+
+class _Replay:
+    """One buffer shape's captured call: the pinned staging buffer (the
+    samples, then the three knobs) and its device copy, which the graph
+    reads; the graph; the output it writes and its pinned host copy."""
+
+    __slots__ = ("stage", "stage_x", "stage_knobs", "inp", "graph", "y", "out", "out_np")
+
+    def __init__(self, c: int, t: int, device: torch.device) -> None:
+        n = c * t
+        self.stage = torch.empty(n + 3, dtype=torch.float32, pin_memory=True)
+        flat = self.stage.numpy()
+        self.stage_x, self.stage_knobs = flat[:n].reshape(c, t), flat[n:]
+        self.inp = torch.empty(n + 3, dtype=torch.float32, device=device)
+        self.out = torch.empty(c, t, dtype=torch.float32, pin_memory=True)
+        self.out_np = self.out.numpy()
+        self.graph = self.y = None
+
+
 class CompiledStreamingProcessor:
     """Drives a reloaded processor artifact buffer by buffer: what a host
-    needs, with no dependency on the model code."""
+    needs, with no dependency on the model code.
+
+    On a CUDA device `process_np` replays the program as a CUDA graph for a
+    buffer shape it has seen before among the last `GRAPH_SHAPES`: the
+    graph is captured at the shape's second call, and a shape's first call
+    runs the program eagerly, so a host whose buffer size never repeats pays
+    no capture.  The graph reads the carried state from one packed device
+    slot (h, c, phase), into which each call copies the caller's state, and
+    writes the new state back into it; a call returns views of one copy of
+    the slot, so a state a caller holds keeps its values."""
 
     def __init__(self, artifact: bytes, n_channels: int, n_hidden: int,
                  device: str | torch.device = "cuda"):
@@ -198,6 +236,9 @@ class CompiledStreamingProcessor:
         self._call = exported.module()
         self.n_channels = n_channels
         self.n_hidden = n_hidden
+        self._graphs: OrderedDict = OrderedDict()  # (channels, length) -> _Replay, or None if seen once
+        if self.device.type == "cuda":  # the packed state the graphs read and write
+            self._slot = torch.zeros(2 * n_channels * n_hidden + 1, dtype=torch.float32, device=self.device)
 
     def init_state(self) -> State:
         return init_stream_state(self.n_channels, self.n_hidden, self.device)
@@ -205,7 +246,85 @@ class CompiledStreamingProcessor:
     def process(self, state, x, lfo_rate, lfo_depth, lfo_stereo_phase_offset):
         return self._call(state, x, lfo_rate, lfo_depth, lfo_stereo_phase_offset)
 
-    process_np = _process_np
+    def process_np(self, state, x: np.ndarray, lfo_rate=0.2, lfo_depth=0.6667, stereo_offset=0.0):
+        """numpy in, numpy out, the state on the device; on a CUDA device
+        and a buffer shape seen before, one graph replay, else the eager
+        program (`_process_np`).  The spans are `_process_np`'s:
+        `processor.input` stages the buffer and the knobs and copies them
+        in, `processor.run` copies the state in, replays
+        (`processor.replay`; at the shape's second call `processor.capture`
+        before it) and copies the new state, and `processor.output` copies
+        the output back, which waits for the device."""
+        x = np.asarray(x)
+        if self.device.type != "cuda" or not self._seen(x.shape):
+            return _process_np(self, state, x, lfo_rate, lfo_depth, stereo_offset)
+        with span("processor.call", device=False), torch.no_grad(), torch.cuda.device(self.device):
+            with span("processor.input", device=False):
+                entry = self._graphs[x.shape]
+                if entry is None:
+                    entry = self._graphs[x.shape] = _Replay(*x.shape, self.device)
+                np.copyto(entry.stage_x, x, casting="unsafe")
+                entry.stage_knobs[:] = (float(lfo_rate), float(lfo_depth), float(stereo_offset))
+                entry.inp.copy_(entry.stage, non_blocking=True)
+            with span("processor.run", device=False):
+                self._state_in(state)
+                if entry.graph is None:
+                    with span("processor.capture", device=False):
+                        self._capture(entry, *x.shape)
+                with span("processor.replay", device=False):
+                    entry.graph.replay()
+                state = self._slot_state(self._slot.clone())
+            with span("processor.output", device=False):
+                entry.out.copy_(entry.y)
+                return entry.out_np.copy(), state
+
+    def _seen(self, shape: Tuple[int, ...]) -> bool:
+        """Whether a call of this buffer shape came before, among the last
+        `GRAPH_SHAPES` shapes; the shape is noted either way."""
+        if len(shape) != 2 or shape[0] != self.n_channels or shape[1] < 1:
+            return False
+        if shape in self._graphs:
+            self._graphs.move_to_end(shape)
+            return True
+        self._graphs[shape] = None
+        if len(self._graphs) > GRAPH_SHAPES:
+            self._graphs.popitem(last=False)
+        return False
+
+    def _slot_state(self, packed: torch.Tensor) -> State:
+        """h, c and phase as views of a packed state (three `as_strided`
+        views: the fewest operations, which the profiler times too)."""
+        c, h = self.n_channels, self.n_hidden
+        return {"h": packed.as_strided((c, h), (h, 1), 0), "c": packed.as_strided((c, h), (h, 1), c * h),
+                "phase": packed.as_strided((), (), 2 * c * h)}
+
+    def _state_in(self, state: State) -> None:
+        h, c, phase = state["h"], state["c"], state["phase"]
+        want = (self.n_channels, self.n_hidden)
+        if h.shape != want or c.shape != want or phase.shape != ():
+            raise ValueError(f"state of h {tuple(h.shape)}, c {tuple(c.shape)}, phase {tuple(phase.shape)}: "
+                             f"expected h and c {want}, phase ()")
+        self._write_slot(state)
+
+    def _write_slot(self, state: State) -> None:
+        torch.cat((state["h"].reshape(-1), state["c"].reshape(-1), state["phase"].reshape(1)), out=self._slot)
+
+    def _capture(self, entry: _Replay, c: int, t: int) -> None:
+        """Capture the program over the static input and the slot, after one
+        eager run of the shape on the capture stream; the graph ends by
+        writing the new state into the slot."""
+        n = c * t
+        x, knobs = entry.inp[:n].view(c, t), (entry.inp[n], entry.inp[n + 1], entry.inp[n + 2])
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self.process(self._slot_state(self._slot), x, *knobs)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            y, new = self.process(self._slot_state(self._slot), x, *knobs)
+            self._write_slot(new)
+        entry.graph, entry.y = graph, y
 
 
 def export_streaming_model(

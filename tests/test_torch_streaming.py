@@ -35,8 +35,11 @@ from mod_extraction_tpu.train.checkpoints import load_weights as jload_weights
 from mod_extraction_tpu.train.checkpoints import save_weights as jsave_weights
 from mod_extraction_tpu_torch.export import streaming as tstream
 from mod_extraction_tpu_torch.models.convert import flax_lstm_to_state_dict, lstm_state_dict_to_flax
+from mod_extraction_tpu_torch.models.lstm import LSTMEffectModel
 from mod_extraction_tpu_torch.ops import lstm_kernels
 from mod_extraction_tpu_torch.train.checkpoints import load_weights, save_weights
+from mod_extraction_tpu_torch.utils import spans
+from test_torch_streaming_cuda import eager, random_knobs, same_state, snapshot, span_counts
 
 EGFX = "models/lstm_64__lfo_2dcnn_io_sa_25_25_no_ch_ln__egfx_ph_2_peak.npz"
 KNOBS = dict(lfo_rate=1.3, lfo_depth=0.9, stereo_offset=0.5)
@@ -281,6 +284,76 @@ def test_streaming_bench_times_k3_at_the_processor_shapes(monkeypatch):
     args = bts.k3_args(tm, _audio(2, total=128), np.random.default_rng(0))
     lstm_kernels.lstm_forward(*args)
     assert seen[0] == seen[1]
+
+
+# -- the loaded artifact's `process_np`: eager on the CPU, a CUDA graph replay
+#    on the card; either way a state a caller holds keeps its values
+
+
+@pytest.fixture(scope="module", params=[2, 1], ids=["stereo", "mono"])
+def artifact_dir(request, tmp_path_factory):
+    """An exported H 8 processor (the port's seeded init), stereo or mono."""
+    model = LSTMEffectModel(n_hidden=8, generator=torch.Generator().manual_seed(5))
+    return tstream.export_streaming_model(model, str(tmp_path_factory.mktemp("art")), "m",
+                                          metadata_overrides={"is_input_mono": request.param == 1})
+
+
+def test_compiled_process_np_is_eager_on_cpu(artifact_dir):
+    """On the CPU `process_np` runs the eager program, bit for bit `process`
+    over buffers of three sizes and changing knobs, and captures nothing: no
+    graph kept, no `processor.capture` or `processor.replay` span."""
+    proc = tstream.load_compiled_processor(artifact_dir, device="cpu")
+    rng = np.random.default_rng(7)
+    x = _audio(proc.n_channels, total=64 + 128 + 130)
+    s_np = s_eager = proc.init_state()
+    spans.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        i = 0
+        for n in (64, 128, 130):
+            knobs = random_knobs(rng)
+            y_np, s_np = proc.process_np(s_np, x[:, i:i + n], **knobs)
+            y_eager, s_eager = eager(proc, s_eager, x[:, i:i + n], **knobs)
+            assert np.array_equal(y_np, y_eager) and same_state(s_np, s_eager)
+            i += n
+    assert span_counts(("processor.call", "processor.capture", "processor.replay")) == [3, 0, 0]
+    assert not proc._graphs
+    spans.clear()
+
+
+@pytest.mark.parametrize("n", [64, 128, 130])
+def test_held_state_reruns_the_same(artifact_dir, n):
+    """A state `process_np` returned gives the same output and state when it
+    is passed again after two later calls, and keeps its values meanwhile."""
+    proc = tstream.load_compiled_processor(artifact_dir, device="cpu")
+    x = _audio(proc.n_channels, total=3 * n)
+    _, state = proc.process_np(proc.init_state(), x[:, :n], **KNOBS)
+    held = snapshot(state)
+    y1, s1 = proc.process_np(state, x[:, n:2 * n], **KNOBS)
+    proc.process_np(s1, x[:, 2 * n:], **KNOBS)
+    assert same_state(state, held)
+    y1_again, s1_again = proc.process_np(state, x[:, n:2 * n], **KNOBS)
+    assert np.array_equal(y1_again, y1) and same_state(s1_again, s1)
+
+
+def test_seen_shapes_are_bounded(artifact_dir):
+    """The processor remembers the last `GRAPH_SHAPES` buffer shapes of its
+    channel count, least recently used out: a shape is seen at its second
+    call if no more than that many others came between; another channel
+    count, a 1-d buffer and an empty one are never noted (they run
+    eagerly).  A shape's graph is made only on the card, so here every
+    noted shape holds None."""
+    proc = tstream.load_compiled_processor(artifact_dir, device="cpu")
+    c = proc.n_channels
+    assert [proc._seen((c, n)) for n in (64, 64, 65)] == [False, True, False]
+    assert not any(proc._seen(s) for s in ((c + 1, 64), (c + 1, 64), (64,), (64,), (c, 0), (c, 0)))
+    for n in range(100, 100 + tstream.GRAPH_SHAPES - 2):
+        assert not proc._seen((c, n))
+    assert proc._seen((c, 64))  # seven other shapes since its last call: kept
+    assert not proc._seen((c, 200))
+    assert not proc._seen((c, 65))  # eight since: gone
+    assert len(proc._graphs) == tstream.GRAPH_SHAPES
+    assert list(proc._graphs)[-3:] == [(c, 64), (c, 200), (c, 65)]
+    assert all(e is None for e in proc._graphs.values())
 
 
 def c_report():
