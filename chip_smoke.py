@@ -1203,6 +1203,62 @@ def cpu_side_result(cpu_ref: tuple, label: str, summary: dict) -> dict:
     return res
 
 
+def tbptt_counted_steps(fxk, lk, task, train_batches, label: str) -> tuple:
+    """A fresh task's train steps, each profiled and counted: K1 and the
+    warm-up's K3 by their Python counters and device events, once a step;
+    K4 and K5 by their device events, once a chunk update.  The chunk
+    updates replay a CUDA graph, so K4's and K5's Python counters tick only
+    at the task's first update (eager) and its capture, both in step 0, the
+    one step with a `tbptt.capture` span.  Then the steps after the first
+    again, unprofiled and timed.  Returns (the launches summed, K3-K5's
+    from their device events; the last metrics; the timed steps' seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mod_extraction_tpu_torch.utils import spans
+
+    n_up = task.updates_per_batch
+    per_step = dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=n_up, lstm_backward=n_up)
+    total = dict.fromkeys(per_step, 0)
+    for i, tb in enumerate(train_batches):
+        fxk.reset_launch_counts()
+        lk.reset_launch_counts()
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            metrics = task.train_step(tb)
+            torch.cuda.synchronize()
+        c = {**fxk.LAUNCHES, **lk.LAUNCHES}
+        python = {k: c[k] for k in per_step}
+        device = lstm_device_launches(prof)
+        captures = spans.summary().get("tbptt.capture", {"count": 0})["count"]
+        spans.clear()
+        first = 2 if i == 0 else 0
+        want = dict(per_step, lstm_train_forward=first, lstm_backward=first)
+        got = {**python, **device}
+        if python != want or got != per_step or captures != int(i == 0):
+            fail(f"{label} train_step {i}: Python launches {python}, expected {want}; device events {device}, "
+                 f"expected {per_step}; captures {captures}")
+        total = {k: total[k] + got[k] for k in per_step}
+        print(f"[{label} train_step {i}] " + " ".join(f"{k}={v.item():.6f}" for k, v in sorted(metrics.items()))
+              + f" launches: device {got}, Python {python}, captures {captures}")
+    step_s = []
+    for tb in train_batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = task.train_step(tb)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return total, metrics, step_s
+
+
+def tbptt_python_launches(task, n_steps: int) -> dict:
+    """K4's and K5's Python counts over a fresh task's first `n_steps`
+    train steps of one batch shape: once an update on the eager loop; with
+    the chunk updates replayed (`task.static_chunks`), once at the first
+    update (eager) and once at the capture."""
+    n = 2 if task.static_chunks else n_steps * task.updates_per_batch
+    return dict(lstm_train_forward=n, lstm_backward=n)
+
+
 def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> list:
     """Stage 2's checks and main path; adds K1 on stage 2's batch (d 485) to
     `k1_row` under "d485", and the step's mean, profiled wall and busy ms and
@@ -1265,23 +1321,11 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
     expect(c, dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=0, lstm_backward=0), "val_step")
     total = {k: total[k] + c[k] for k in keys}
     print(f"[TBPTT val_step r7 bf16 b={BATCH}] " + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items())))
-    per_step = dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=n_up, lstm_backward=n_up)
-    step_s = []
-    for i, tb in enumerate(train_batches):
-        reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = task.train_step(tb)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = counts()
-        expect(c, per_step, f"train_step {i}")
-        total = {k: total[k] + c[k] for k in keys}
-        if i > 0:  # step 0 warms up the allocator and the cuDNN plans
-            step_s.append(dt)
-        print(f"[TBPTT train_step {i}] " + " ".join(f"{k}={v.item():.6f}" for k, v in sorted(metrics.items()))
-              + f" wall={dt * 1e3:.2f} ms launches={c}")
-    print(f"[stage 2 main path] launches={total}")
+    # step 0 warms up the allocator and the cuDNN plans and captures the chunk update
+    steps, metrics, step_s = tbptt_counted_steps(fxk, lk, task, train_batches, "TBPTT")
+    total = {k: total[k] + steps[k] for k in keys}
+    print(f"[stage 2 main path] launches={total} (K3-K5: device events); timed steps ms "
+          f"{[round(x * 1e3, 2) for x in step_s]}")
     if not (all(math.isfinite(v) for v in val.values())
             and all(math.isfinite(v.item()) for v in metrics.values())):
         fail(f"non-finite TBPTT metrics: val={val} train={metrics}")
@@ -1294,8 +1338,37 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
           f"audio_s_per_s={audio_s / step_mean:.2f} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
 
+    # -- K1 on the path's last train batch (d 485); its plain version in a
+    #    CPU process beside the rest of the phase
+    d = cfg.max_delay_samples
+    k1_path = k1_args(train_batches[-1], d)
+    plain_tmp = tempfile.TemporaryDirectory()
+    k1_plain = start_plain_on_cpu("flanger_plain", [k1_path], Path(plain_tmp.name))
+    k1 = check_k1_path(fxk, k1_path, f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d {d}")
+
+    # -- each kernel at the main path's shapes, on the path's own data
+    k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
+    rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total)
+    # cycles a step of the two walks: kernel time / T x the SM clock under load
+    by_kernel = device_ms_per_launch(lambda: lk.lstm_backward(*k5_args), 10)
+    walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_walk" in k_)
+    mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
+    print("[K5 by kernel, ms a launch (profiler, mean of the launches recorded)] " + "  ".join(
+        f"{k_}={v:.4f}" for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    print(f"[cycles a step at {mhz:.0f} MHz (nvidia-smi clocks.sm under load)] "
+          f"K4 walk {times['lstm_train_forward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}  "
+          f"K5 walk {walk_ms / TBPTT_CHUNK * mhz * 1e3:.0f} (walk kernel {walk_ms:.4f} ms)")
+    if not walk_ms > 0:
+        fail(f"the profiler saw no K5 walk kernel: {sorted(by_kernel)}")
+    val_walk(lk, k3_val)
+
+    # -- where one full-width TBPTT train step spends the card's time
+    wall_ms, busy_ms = profile_train_step(task, train_batches[1], "stage 2")
+    summary.update(step_ms=step_mean * 1e3, profiled_wall_ms=wall_ms, busy_ms=busy_ms)
+
     # -- the whole path against the CPU, float32, batch 3, plain kernels there
-    #    (the CPU side from `stage2_cpu_reference`'s process).
+    #    (the CPU side from `stage2_cpu_reference`'s process, asked for last:
+    #    the replayed steps are fast, so it needs the card work above to end).
     #    Ground-truth conditioning: val and train metrics and the parameters.
     ref_np = make_synthetic_batch(STAGE2_CPU_SEED, STAGE2_CPU_BATCH, N_SAMPLES, SR, "flanger")  # mixed validity
     t = stage2_task("cuda", None)
@@ -1355,34 +1428,6 @@ def run_stage2(fxk, lk, rng, k1_row: dict, summary: dict, cpu_ref: tuple) -> lis
             f"{k}={vals['cuda'][k]:.6f}/{vals['cpu'][k]:.6f}" for k in sorted(vals["cpu"])))
     else:
         print("[TBPTT val_step f32 r7 card vs CPU] not compared: the corners differ")
-
-    # -- K1 on the path's last train batch (d 485); its plain version in a
-    #    CPU process beside the rest of the phase
-    d = cfg.max_delay_samples
-    k1_path = k1_args(train_batches[-1], d)
-    plain_tmp = tempfile.TemporaryDirectory()
-    k1_plain = start_plain_on_cpu("flanger_plain", [k1_path], Path(plain_tmp.name))
-    k1 = check_k1_path(fxk, k1_path, f"stage 2 batch, flanger seed {N_TBPTT_STEPS}, d {d}")
-
-    # -- each kernel at the main path's shapes, on the path's own data
-    k3_args, k4_args, k5_args, k3_val = path_lstm_args(lk, task, val_batch)
-    rows, times = lstm_path_rows(lk, k3_args, k4_args, k5_args, total)
-    # cycles a step of the two walks: kernel time / T x the SM clock under load
-    by_kernel = device_ms_per_launch(lambda: lk.lstm_backward(*k5_args), 10)
-    walk_ms = sum(v for k_, v in by_kernel.items() if "bwd_walk" in k_)
-    mhz = sm_clock_mhz(lambda: lk.lstm_train_forward(*k4_args))
-    print("[K5 by kernel, ms a launch (profiler, mean of the launches recorded)] " + "  ".join(
-        f"{k_}={v:.4f}" for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
-    print(f"[cycles a step at {mhz:.0f} MHz (nvidia-smi clocks.sm under load)] "
-          f"K4 walk {times['lstm_train_forward'][0] / TBPTT_CHUNK * mhz * 1e3:.0f}  "
-          f"K5 walk {walk_ms / TBPTT_CHUNK * mhz * 1e3:.0f} (walk kernel {walk_ms:.4f} ms)")
-    if not walk_ms > 0:
-        fail(f"the profiler saw no K5 walk kernel: {sorted(by_kernel)}")
-    val_walk(lk, k3_val)
-
-    # -- where one full-width TBPTT train step spends the card's time
-    wall_ms, busy_ms = profile_train_step(task, train_batches[1], "stage 2")
-    summary.update(step_ms=step_mean * 1e3, profiled_wall_ms=wall_ms, busy_ms=busy_ms)
 
     t0 = time.perf_counter()
     (k1["err"],), (k1["plain_ms"],) = plain_results(*k1_plain, [k1["out"]], "K1 on stage 2's path")
@@ -1530,24 +1575,10 @@ def run_stage2_h160(fxk, lk, rng, h64: dict, cpu_ref: tuple) -> tuple:
     if total != dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=0, lstm_backward=0):
         fail(f"H 160 val_step: launches {total}")
     print(f"[TBPTT H 160 val_step r6 bf16 b={BATCH}] " + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items())))
-    per_step = dict(flanger=1, phaser=0, lstm_forward=1, lstm_train_forward=n_up, lstm_backward=n_up)
-    step_s = []
-    for i, tb in enumerate(train_batches):
-        reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = task.train_step(tb)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = counts()
-        if c != per_step:
-            fail(f"H 160 train_step {i}: launches {c}, expected {per_step}")
-        total = {k: total[k] + c[k] for k in keys}
-        if i > 0:
-            step_s.append(dt)
-        print(f"[TBPTT H 160 train_step {i}] " + " ".join(f"{k}={v.item():.6f}" for k, v in sorted(metrics.items()))
-              + f" wall={dt * 1e3:.2f} ms launches={c}")
-    print(f"[stage 2 H 160 main path] launches={total}")
+    steps, metrics, step_s = tbptt_counted_steps(fxk, lk, task, train_batches, "TBPTT H 160")
+    total = {k: total[k] + steps[k] for k in keys}
+    print(f"[stage 2 H 160 main path] launches={total} (K3-K5: device events); timed steps ms "
+          f"{[round(x * 1e3, 2) for x in step_s]}")
     if not (all(math.isfinite(v) for v in val.values())
             and all(math.isfinite(v.item()) for v in metrics.values())
             and all(torch.isfinite(p).all().item() for p in task.effect_model.parameters())):
@@ -1637,10 +1668,21 @@ def serve_buffers_thrice(rng, total: int) -> list:
     return out
 
 
-def k3_device_launches(prof) -> int:
-    """K3's kernels (`lstm_fwd_*`) among a profile's device events: each
-    launch, whether issued alone or by a graph replay."""
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "lstm_fwd_" in e.name)
+def lstm_device_launches(prof) -> dict:
+    """K3, K4 and K5 among a profile's device events, under their Python
+    counters' names: each launch, whether issued alone or by a graph
+    replay.  A forward kernel (`lstm_fwd_*`) whose template saves the states
+    (`true`) is K4, else K3; a K5 call runs one reverse walk (`lstm_bwd_*`)."""
+    out = dict(lstm_forward=0, lstm_train_forward=0, lstm_backward=0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "lstm_fwd_" in e.name:
+            args = e.name.partition("<")[2].partition(">")[0]
+            out["lstm_train_forward" if "true" in args else "lstm_forward"] += 1
+        elif "lstm_bwd_" in e.name:
+            out["lstm_backward"] += 1
+    return out
 
 
 def profiled_artifact_drive(lk, art, x, sizes, knobs) -> dict:
@@ -1660,7 +1702,7 @@ def profiled_artifact_drive(lk, art, x, sizes, knobs) -> dict:
     found = spans.summary()
     spans.clear()
     replays, captures = (found.get(f"processor.{k}", {"count": 0})["count"] for k in ("replay", "capture"))
-    python, device_k3 = dict(lk.LAUNCHES), k3_device_launches(prof)
+    python, device_k3 = dict(lk.LAUNCHES), lstm_device_launches(prof)["lstm_forward"]
     runs = sum(1 for i, n in enumerate(sizes) if i == 0 or n != sizes[i - 1])
     y_eager, s_eager = drive_eager(art, x, sizes, knobs)
     calls = len(sizes)
@@ -2732,11 +2774,20 @@ def run_reference(fxk, lk, rows: list) -> dict:
         prev = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         reset_launch_counts()
+        losses, device = {}, []
         try:
-            losses = {label: t.train_step(batch)["loss"].item() for label, t in tasks.items()}
+            for label, t in tasks.items():  # a profile a task: one graph capture in each
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    losses[label] = t.train_step(batch)["loss"].item()
+                device.append(lstm_device_launches(prof))
         finally:
             torch.backends.cudnn.deterministic = prev
-        count("stage 2 train_steps", {"lstm_forward": 2, "lstm_train_forward": 2 * n_up, "lstm_backward": 2 * n_up})
+        if any(d != {"lstm_forward": 1, "lstm_train_forward": n_up, "lstm_backward": n_up} for d in device):
+            fail(f"reference stage 2 train_steps: device events {device}, expected {n_up} updates each")
+        # each task's first update is eager and its second captured: the Python counters tick at those
+        count("stage 2 train_steps", {"lstm_forward": 2, **{k: 2 * v for k, v in tbptt_python_launches(
+            tasks["pt"], 1).items()}})
         params = [t.trained_model.state_dict() for t in tasks.values()]
         same_params = all(torch.equal(v, params[1][k]) for k, v in params[0].items())
         err3, err4, err5, _ = lstm_plain_errors(lk, *path_lstm_args(lk, tasks["pt"], batch)[:3])
@@ -3068,9 +3119,10 @@ def ddp_world1(rows: list, summary: dict) -> None:
                           timeout=DDP_TIMEOUT)
         print(f"[ddp (a)] one NCCL rank and no group in one process: {time.perf_counter() - t0:.1f} s")
     n_batches = FIT_TRAIN_BATCHES + FIT_VAL_BATCHES
-    want_launches = {"fit stage 1": dict(flanger=n_batches, phaser=n_batches),
-                     "fit stage 2": dict(lstm_forward=n_batches, lstm_train_forward=FIT_TRAIN_BATCHES * 83,
-                                         lstm_backward=FIT_TRAIN_BATCHES * 83)}
+    eager = FIT_TRAIN_BATCHES * 83  # under a process group the chunk updates run the eager loop
+    want_launches = {("fit stage 1", tag): dict(flanger=n_batches, phaser=n_batches) for tag in ("group", "none")}
+    want_launches.update({("fit stage 2", tag): dict(lstm_forward=n_batches, lstm_train_forward=n, lstm_backward=n)
+                          for tag, n in (("group", eager), ("none", 2))})
     for label in fit_cfgs:
         g, n = w1["group"][label], w1["none"][label]
         diff = [k for k in n["params"] if not np.array_equal(g["params"][k], n["params"][k])]
@@ -3080,9 +3132,9 @@ def ddp_world1(rows: list, summary: dict) -> None:
             worst = max((float(np.abs(g["params"][k] - n["params"][k]).max()) for k in diff), default=0.0)
             fail(f"ddp (a) {label}: world 1 under NCCL differs from no group: losses {g['losses']} vs "
                  f"{n['losses']}, {len(diff)} parameter tensors differ (max |d| {worst:.3e}): {diff[:5]}")
-        for got in (g["launches"], n["launches"]):
-            if {k: v for k, v in got.items() if v} != want_launches[label]:
-                fail(f"ddp (a) {label}: launches {got}, expected {want_launches[label]}")
+        for tag, got in (("group", g["launches"]), ("none", n["launches"])):
+            if {k: v for k, v in got.items() if v} != want_launches[label, tag]:
+                fail(f"ddp (a) {label} ({tag}): launches {got}, expected {want_launches[label, tag]}")
         add_ddp_launches(rows, g["launches"], f"(a) {label}")
     print(f"[ddp (a)] world 1 under NCCL == no group, losses and final weights bit for bit, for "
           f"{FIT_LFO_CONFIG} and {FIT_TBPTT_CONFIG}")
@@ -3134,6 +3186,8 @@ def _one_process_step(name: str, sub_batches: int = 1, first_rows_only: bool = F
     from mod_extraction_tpu_torch.parallel.dist import shard_batch
 
     task, batch = ddp_task(name)
+    if hasattr(task, "static_chunks"):  # the eager chunk loop, as under the ranks' group: their launches compare
+        task.static_chunks = False
     sub = getattr(task, "sub_batch_size", None)
     if first_rows_only:
         batch = shard_batch(batch, 0, DDP_RANKS, sub)
@@ -3407,15 +3461,13 @@ def variant_reference(name: str, device: str) -> dict:
     batch = _variant_batch(name, 4000, VARIANT_CPU_BATCH, VARIANT_CPU_SAMPLES, device)
     val = {k: v.item() for k, v in task.val_step(batch).items()}
     grads = {}
-    update = task._update
 
-    def first_update():
+    def first_update(opt, args, kwargs):  # the optimizer's own hook: a replayed update calls no task method
         if not grads:
             grads.update({k: p.grad.detach().float().cpu().numpy()
                           for k, p in task.trained_model.named_parameters()})
-        update()
 
-    task._update = first_update
+    task.optimizer.register_step_pre_hook(first_update)
     train = {k: v.item() for k, v in task.train_step(batch).items()}
     params = {k: v.detach().float().cpu().numpy() for k, v in task.trained_model.state_dict().items()}
     return dict(val=val, train=train, grads=grads, params=params)
@@ -3472,7 +3524,12 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     """A `val_step` and the train steps of one item on the card, the val
     step's launches held to `val_want` and each train step's to `per_step`;
     returns the launches, the mean step ms after the first, and the last
-    metrics."""
+    metrics.  A task whose chunk updates replay a CUDA graph has each train
+    step profiled: K3-K5 are held by their device events, and K4's and K5's
+    Python counters to its first update and its capture (step 0 alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs = getattr(task, "static_chunks", False)
     total = dict.fromkeys(per_step, 0)
     reset_launch_counts()
     val = {k: v.item() for k, v in task.val_step(val_batch).items()}
@@ -3484,11 +3541,19 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
     for i, tb in enumerate(train_batches):
         reset_launch_counts()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = {k: v.item() for k, v in task.train_step(tb).items()}
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if graphs else \
+                contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            metrics = {k: v.item() for k, v in task.train_step(tb).items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         got = launch_counts()
+        if graphs:
+            first = 2 if i == 0 else 0
+            python = dict(got, lstm_train_forward=first, lstm_backward=first)
+            if any(got[k] != python[k] for k in per_step):
+                fail(f"variants {name}: train_step {i} launched {got} from Python, expected {python}")
+            got = dict(got, **lstm_device_launches(prof))
         if any(got[k] != v for k, v in per_step.items()):
             fail(f"variants {name}: train_step {i} launched {got}, expected {per_step}")
         total = {k: total[k] + got[k] for k in total}
@@ -3503,7 +3568,8 @@ def _variant_steps(name: str, task, val_batch, train_batches, per_step: dict, va
         fail(f"variants {name}: non-finite parameters after the train steps")
     ms = float(np.mean(step_s)) * 1e3
     print(f"[variants {name}] val loss={val['loss']:.6f} valid_fraction={val.get('valid_fraction', 1.0)} "
-          f"mean_step_ms={ms:.3f} (steps after the first) launches={total}")
+          f"mean_step_ms={ms:.3f} (steps after the first{', profiled' if graphs else ''}) launches={total}"
+          + (" (K3-K5: device events)" if graphs else ""))
     return dict(launches=total, step_ms=ms, val=val, train=metrics, valid_fractions=valid)
 
 
@@ -4110,9 +4176,7 @@ def main() -> int:
             lambda task: dict(none, flanger=n_batches, phaser=n_batches), bench_lines[0], rows),
         "fit stage 2": timed("fit stage 2", run_fit,
             "fit stage 2", FIT_TBPTT_CONFIG, counters,
-            lambda task: dict(none, lstm_forward=n_batches,
-                              lstm_train_forward=FIT_TRAIN_BATCHES * task.updates_per_batch,
-                              lstm_backward=FIT_TRAIN_BATCHES * task.updates_per_batch),
+            lambda task: dict(none, lstm_forward=n_batches, **tbptt_python_launches(task, FIT_TRAIN_BATCHES)),
             bench_lines[1], rows),
     }
     print("[fits] " + json.dumps(fits))

@@ -1,6 +1,12 @@
 """The launch counts of every kernel wrapper (`fx_kernels`, `lstm_kernels`,
 `conv_kernels`) in one place, and their record across processes.
 
+A wrapper counts its Python calls.  A CUDA graph replays its kernels
+without them: the TBPTT chunk update (`train/tbptt_task.py`) and the
+processor call (`export/streaming.py`) tick a counter only at an eager
+call and at a capture, so `chip_smoke.py` holds replayed paths by the
+kernels' device events in a profile.
+
 A tool that trains in fresh processes (`scripts/train_resumable_torch.sh`)
 calls `log_launch_counts()` at the end of each: with `MODX_LAUNCH_LOG` set
 to a file, the process appends its counts there as one JSON line, so the

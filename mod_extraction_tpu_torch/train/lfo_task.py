@@ -59,31 +59,68 @@ OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimize
 
 
 def make_optimizer(
-    params, optimizer: Optional[OptimizerFactory], lr_schedule: Optional[Callable[[int], float]]
+    params, optimizer: Optional[OptimizerFactory], lr_schedule: Optional[Callable[[int], float]],
+    capturable: bool = False,
 ):
     """(optimizer, scheduler) over `params`: `optimizer` (the tasks' own
     default `adamw` when None), and a `LambdaLR` that sets its lr to
     `lr_schedule(u)` before update u, counted from 0 as optax's schedules
     count updates; the task advances it once per optimizer update.  The
     decoupled weight decay of AdamW is multiplied by the scheduled lr, as
-    optax's `adamw` multiplies it."""
+    optax's `adamw` multiplies it.  `capturable`: a task whose updates a
+    CUDA graph replays; an optimizer that can be captured (Adam, AdamW) is
+    put in `optimizer_form`'s capturable form before any state exists, and
+    the schedule then writes the lr tensor in place."""
     opt = (optimizer or adamw)(params)
-    if lr_schedule is None:
-        return opt, None
-    base = opt.param_groups[0]["lr"]
-    scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda u: lr_schedule(u) / base)
+    scheduler = None
+    if lr_schedule is not None:
+        base = opt.param_groups[0]["lr"]
+        scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda u: lr_schedule(u) / base)
+    if capturable and can_capture(opt):
+        optimizer_form(opt, True)
     return opt, scheduler
+
+
+def can_capture(opt: torch.optim.Optimizer) -> bool:
+    """Whether `opt` has a capturable form (torch's Adam and AdamW do)."""
+    return all("capturable" in group for group in opt.param_groups)
+
+
+def optimizer_form(opt: torch.optim.Optimizer, capturable: bool) -> None:
+    """Puts an optimizer that can be captured in one of its two forms:
+    capturable (each group's lr a float32 tensor on its parameters' device
+    and the step counters there, so a CUDA graph of an update reads both
+    from the device) or not (the lr a float, the counters on the host, as
+    torch builds it).  A state saved in either form loads into either: the
+    task calls this again after `load_state_dict`.  The lr keeps its value;
+    a float lr held as a float32 tensor rounds to float32.  Groups of other
+    optimizers are left as they are."""
+    if not can_capture(opt):
+        return
+    for group in opt.param_groups:
+        device = group["params"][0].device
+        lr = float(group["lr"])
+        group["capturable"] = capturable
+        group["lr"] = torch.tensor(lr, dtype=torch.float32, device=device) if capturable else lr
+        for p in group["params"]:
+            state = opt.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(p.device if capturable else "cpu")
+    # its eager updates (a task's first, a new shape's first) are meant, not a slip
+    opt._warned_capturable_if_run_uncaptured = capturable
 
 
 class TrainableTask:
     """What the Trainer and the checkpoints need of a task that trains:
     `trained_model`, `optimizer`, `scheduler` and `generator` (the host
-    generator of the task's random draws)."""
+    generator of the task's random draws); `capturable`, the optimizer's
+    form (`optimizer_form`), which a loaded state is put back in."""
 
     trained_model: torch.nn.Module
     optimizer: Optional[torch.optim.Optimizer] = None
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None
     generator: torch.Generator
+    capturable: bool = False
 
     def _update(self) -> None:
         """One optimizer update, then the schedule's advance."""
@@ -102,6 +139,7 @@ class TrainableTask:
     def load_state_dict(self, state: Dict) -> None:
         self.trained_model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        optimizer_form(self.optimizer, self.capturable)
         if self.scheduler is not None:
             self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])

@@ -33,6 +33,18 @@ param?, lfo?} (the JAX `init_state`'s layout).  One optimizer covers it,
 its schedule advanced once a chunk, and one gradient all-reduce a chunk
 (`parallel/dist.py`) covers every part.
 
+On the card the chunk updates of a conditioning fixed for the step (the
+frozen extractor, a RandomLFO, the ground truth; no param model) replay a
+CUDA graph, one launch an update in place of about seventy: the step
+lays its conditioning, dry and wet audio out chunk by chunk in static
+buffers (`_ChunkGraph`, one per batch and chunk shape), and the graph
+reads its chunk through a device-side index it advances itself, carries
+(h, c) in a static slot and writes its output into the chunk's slot.  The
+optimizer is then capturable (`lfo_task.optimizer_form`).  A shape's first
+update runs eagerly, on the stream that then captures it.  The CPU, data
+parallelism, the unfrozen extractor and the param model keep the eager
+loop.
+
 Invalid LFOs keep their place in the batch with weight zero, so every
 weighted mean leaves them out (the JAX package's deviation from the
 reference, which drops them).
@@ -40,7 +52,8 @@ reference, which drops them).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -60,6 +73,7 @@ from mod_extraction_tpu_torch.ops.corners import (
 from mod_extraction_tpu_torch.parallel.dist import (
     all_reduce_grads,
     all_reduce_mean,
+    is_distributed,
     rank_sum,
     reduce_metrics,
     world,
@@ -67,6 +81,7 @@ from mod_extraction_tpu_torch.parallel.dist import (
 from mod_extraction_tpu_torch.train.lfo_task import (
     OptimizerFactory,
     TrainableTask,
+    can_capture,
     center_crop_last,
     make_optimizer,
 )
@@ -74,6 +89,45 @@ from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
 from mod_extraction_tpu_torch.utils.spans import span
+
+
+GRAPH_KEYS = 4  # chunk shapes a task keeps captured, least recently used out
+
+
+class _ChunkGraph:
+    """One chunk shape's static update: the step's conditioning, dry and
+    wet audio from the warm-up's end laid out chunk by chunk, (B, L + C_in
+    + C_out, n_chunks, step); the batch weights and their global sum; the
+    carried (h, c); the index of the chunk the update reads, which it
+    advances; the outputs' slots (B, C_out, n_chunks, step); on the card
+    the captured update, once a first one has run eagerly (`warm`)."""
+
+    __slots__ = ("split", "inputs", "weights", "state", "index", "ys", "warm", "graph")
+
+    def __init__(self, b: int, split: Tuple[int, int, int], n: int, s: int, hid: int, device) -> None:
+        f32 = dict(dtype=torch.float32, device=device)
+        self.split = split  # channels of the conditioning, the dry and the wet audio
+        self.inputs = torch.empty(b, sum(split), n, s, **f32)
+        self.weights = torch.empty(b + 1, **f32)
+        self.state = torch.empty(2, b, hid, **f32)
+        self.index = torch.zeros(1, dtype=torch.long, device=device)
+        self.ys = torch.empty(b, split[2], n, s, **f32)
+        self.warm = False
+        self.graph = None
+
+    def load(self, lat, dry, wet, start: int, bw: BatchWeights, hidden) -> None:
+        """The step's inputs from sample `start`, its weights and the
+        warm-up's state, in four launches (the index to 0 the last)."""
+        b, c, n, s = self.inputs.shape
+        seg = slice(start, start + n * s)
+        torch.cat([lat[..., seg], dry[..., seg], wet[..., seg]], dim=1, out=self.inputs.view(b, c, n * s))
+        torch.cat([bw.values, bw.total.reshape(1)], out=self.weights)
+        torch.stack(hidden, out=self.state)
+        self.index.zero_()
+
+    def batch_weights(self) -> BatchWeights:
+        b = self.state.shape[1]
+        return BatchWeights(self.weights[:b], self.weights[b])
 
 
 def _global_weights(weights: torch.Tensor) -> BatchWeights:
@@ -147,9 +201,17 @@ class TBPTTEffectModelingTask(TrainableTask):
             parts["lfo"] = self.lfo_model
         self.multi_params = len(parts) > 1
         self.trained_model = nn.ModuleDict(parts) if self.multi_params else self.effect_model
+        graphs = self.device.type == "cuda" and self._static_conditioning()
         self.optimizer, self.scheduler = make_optimizer(
-            self.trained_model.parameters(), optimizer, lr_schedule
+            self.trained_model.parameters(), optimizer, lr_schedule, capturable=graphs
         )
+        self.capturable = graphs and can_capture(self.optimizer)
+        # the chunk updates from static step buffers (`_static_chunks`),
+        # replayed as CUDA graphs on the card; off, the eager loop (tests and
+        # tools turn it off to hold the two against each other)
+        self.static_chunks = self.capturable
+        self._graphs: OrderedDict = OrderedDict()  # (B, split, n_chunks, step) -> _ChunkGraph
+        self._capture_stream = None
 
     def state_dict(self) -> Dict:
         """The trainable state plus a frozen extractor's weights, as the JAX
@@ -162,9 +224,19 @@ class TBPTTEffectModelingTask(TrainableTask):
         return state
 
     def load_state_dict(self, state: Dict) -> None:
+        """The state, its optimizer put back in the task's form; captured
+        updates are dropped (they hold the optimizer state's old tensors)."""
+        if self._graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
         super().load_state_dict(state)
         if "lfo_model" in state:
             self.lfo_model.load_state_dict(state["lfo_model"])
+
+    def _static_conditioning(self) -> bool:
+        """Whether a step's conditioning is fixed before its chunks (no
+        unfrozen extractor, no param model): what `_static_chunks` needs."""
+        return not self.trainable_lfo and self.param_model is None
 
     # ------------------------------------------------------------- geometry
     def _cropped_n_samples(self) -> int:
@@ -271,12 +343,18 @@ class TBPTTEffectModelingTask(TrainableTask):
         over the ranks once a batch), and the metrics are those of the
         global batch.
 
+        With `static_chunks` (on the card by default where the
+        conditioning is fixed for the step, without data parallelism) the
+        chunks run `_static_chunks`; otherwise the eager loop.
+
         Its spans (`utils/spans.py`): `tbptt.step` over `render`,
         `tbptt.condition` (extraction, smoothing and stretch, crop,
         validity, upsampling), `tbptt.warmup` (K3), one `tbptt.chunk` per
-        update, each over `tbptt.forward` (latent, K4, loss),
-        `tbptt.backward` (K5) and `tbptt.update` (all-reduce, AdamW,
-        schedule, detach), and `tbptt.metrics`."""
+        update, and `tbptt.metrics`.  In the eager loop each chunk spans
+        `tbptt.forward` (latent, K4, loss), `tbptt.backward` (K5) and
+        `tbptt.update` (all-reduce, AdamW, schedule, detach); a static
+        chunk has no inner spans, and a capture spans `tbptt.capture`
+        (host only)."""
         with span("tbptt.step"):
             em = self.effect_model
             em.train()
@@ -291,27 +369,116 @@ class TBPTTEffectModelingTask(TrainableTask):
             with span("tbptt.warmup"), torch.no_grad():
                 h0 = lstm_init_state(dry.shape[0], em.n_hidden, self.device)
                 _, hidden = em(dry[:, :, :w], self._latent(mod_sr[:, :, :w], wet), h0)
-            ys = []
-            for i in range(n_chunks):
-                with span("tbptt.chunk"):
-                    a, e = w + i * s, w + (i + 1) * s
-                    self.optimizer.zero_grad(set_to_none=True)
-                    with span("tbptt.forward"):
-                        mod_c = (self._chunk_mod_sr(full[0], full[1], t) if self.trainable_lfo
-                                 else mod_sr)[:, :, a:e]
-                        y, new_hidden = em(dry[:, :, a:e], self._latent(mod_c, wet), hidden)
-                        loss, _ = self.losses(y, wet[:, :, a:e], bw, ranks)
-                    with span("tbptt.backward"):
-                        loss.backward()
-                    with span("tbptt.update"):
-                        all_reduce_grads(self.trained_model.parameters())
-                        self._update()
-                        hidden = detach_state(new_hidden)
-                        ys.append(y.detach())
+            if self.static_chunks and not is_distributed():
+                ys = self._static_chunks(self._latent(mod_sr, wet), dry, wet, bw, hidden, n_chunks)
+            else:
+                ys = self._eager_chunks(full, dry, wet, mod_sr, bw, ranks, hidden, n_chunks)
             with span("tbptt.metrics"), torch.no_grad():
-                _, metrics = self.losses(torch.cat(ys, dim=-1), wet[:, :, w : w + n_chunks * s], bw, ranks)
+                _, metrics = self.losses(ys, wet[:, :, w : w + n_chunks * s], bw, ranks)
                 metrics["valid_fraction"] = weights.mean()
                 return reduce_metrics({k: v.detach() for k, v in metrics.items()})
+
+    def _eager_chunks(self, full, dry, wet, mod_sr, bw, ranks, hidden, n_chunks: int) -> torch.Tensor:
+        """The chunk updates one operation at a time: their outputs (B,
+        C_out, n_chunks * step)."""
+        em = self.effect_model
+        w, s, t = self.warmup_n_samples, self.step_n_samples, dry.shape[-1]
+        ys = []
+        for i in range(n_chunks):
+            with span("tbptt.chunk"):
+                a, e = w + i * s, w + (i + 1) * s
+                self.optimizer.zero_grad(set_to_none=True)
+                with span("tbptt.forward"):
+                    mod_c = (self._chunk_mod_sr(full[0], full[1], t) if self.trainable_lfo
+                             else mod_sr)[:, :, a:e]
+                    y, new_hidden = em(dry[:, :, a:e], self._latent(mod_c, wet), hidden)
+                    loss, _ = self.losses(y, wet[:, :, a:e], bw, ranks)
+                with span("tbptt.backward"):
+                    loss.backward()
+                with span("tbptt.update"):
+                    all_reduce_grads(self.trained_model.parameters())
+                    self._update()
+                    hidden = detach_state(new_hidden)
+                    ys.append(y.detach())
+        return torch.cat(ys, dim=-1)
+
+    def _static_chunks(self, lat, dry, wet, bw: BatchWeights, hidden, n_chunks: int) -> torch.Tensor:
+        """The chunk updates from the static buffers of the step's shape
+        (`_ChunkGraph`, filled once), each `_static_update`: on the card
+        one graph replay, but a shape's first update, eager on the capture
+        stream, and its second, captured then replayed; on the CPU each
+        eagerly.  The schedule advances after each.  Returns the outputs
+        (B, C_out, n_chunks * step), a view of the shape's slots."""
+        if not self._static_conditioning():
+            raise ValueError("static chunk updates need a conditioning fixed for the step: "
+                             "no unfrozen extractor and no param model")
+        b, s = dry.shape[0], self.step_n_samples
+        split = (lat.shape[1], dry.shape[1], wet.shape[1])
+        g = self._chunk_graph((b, split, n_chunks, s))
+        g.load(lat, dry, wet, self.warmup_n_samples, bw, hidden)
+        on_card = self.device.type == "cuda"
+        for _ in range(n_chunks):
+            with span("tbptt.chunk"):
+                if not on_card:
+                    self._static_update(g)
+                elif g.graph is not None:
+                    g.graph.replay()
+                elif not g.warm:
+                    self._on_capture_stream(lambda: self._static_update(g))
+                    g.warm = True
+                else:
+                    with span("tbptt.capture", device=False):
+                        g.graph = self._capture(g)
+                    g.graph.replay()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+        return g.ys.view(b, split[2], n_chunks * s)
+
+    def _chunk_graph(self, key) -> _ChunkGraph:
+        g = self._graphs.get(key)
+        if g is not None:
+            self._graphs.move_to_end(key)
+            return g
+        b, split, n, s = key
+        g = self._graphs[key] = _ChunkGraph(b, split, n, s, self.effect_model.n_hidden, self.device)
+        if len(self._graphs) > GRAPH_KEYS:
+            self._graphs.popitem(last=False)
+        return g
+
+    def _static_update(self, g: _ChunkGraph) -> None:
+        """One chunk update read from `g` at its index: the chunk's
+        conditioning, dry and wet audio, K4, the weighted loss, K5, the
+        optimizer step; then the new (h, c) into the state slot, the output
+        into its slot, and the index advanced."""
+        self.optimizer.zero_grad(set_to_none=True)
+        lat, dry, wet = g.inputs.index_select(2, g.index).squeeze(2).split(g.split, dim=1)
+        y, hidden = self.effect_model(dry, lat, (g.state[0], g.state[1]))
+        loss, _ = self.losses(y, wet, g.batch_weights())
+        loss.backward()
+        self.optimizer.step()
+        with torch.no_grad():
+            torch.stack(hidden, out=g.state)
+            g.ys.index_copy_(2, g.index, y.unsqueeze(2))
+            g.index += 1
+
+    def _on_capture_stream(self, fn) -> None:
+        """`fn` on the task's capture stream, ordered after the current
+        stream's work and before what follows it."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(current)
+        with torch.cuda.stream(self._capture_stream):
+            fn()
+        current.wait_stream(self._capture_stream)
+
+    def _capture(self, g: _ChunkGraph) -> torch.cuda.CUDAGraph:
+        """`_static_update` of `g` captured on the capture stream (its own
+        memory pool), after a first update ran there eagerly."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._capture_stream, capture_error_mode="thread_local"):
+            self._static_update(g)
+        return graph
 
     def train_steps(
         self, batches: Sequence[Dict], corpus: Optional[torch.Tensor] = None,

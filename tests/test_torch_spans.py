@@ -139,13 +139,18 @@ def test_spans_lie_in_the_chrome_trace(tmp_path):
         assert any(e["ts"] <= start_us <= e["ts"] + e["dur"] for e in ann if e["name"] == r.name), r.name
 
 
-def test_tbptt_step_spans():
+@pytest.mark.parametrize("static", [False, True], ids=["eager", "static"])
+def test_tbptt_step_spans(static):
+    """One `tbptt.chunk` a chunk; in the eager loop each over its forward,
+    backward and update, in the static updates (the form the card replays
+    as a CUDA graph) none inside it."""
     sr, n, chunk = 8000.0, 8000, 512
     task = TBPTTEffectModelingTask(
         LSTMEffectModel(in_ch=1, out_ch=1, n_hidden=8, latent_dim=1),
         RenderConfig(sr=sr, n_samples=n, effects=(2,), max_delay_samples=89),
         warmup_n_samples=chunk, step_n_samples=chunk, device="cpu",
     )
+    task.static_chunks = static
     batch = batch_to_torch(make_synthetic_batch(3, 4, n, sr, "flanger"), "cpu")
     task.train_step(batch)  # a step off the profiler counts, and records nothing
     assert spans.records() == []
@@ -157,8 +162,9 @@ def test_tbptt_step_spans():
     n_chunks = task.updates_per_batch
     assert [r.name for r in kids] == (["render", "tbptt.condition", "tbptt.warmup"]
                                       + ["tbptt.chunk"] * n_chunks + ["tbptt.metrics"])
+    inner = [] if static else ["tbptt.forward", "tbptt.backward", "tbptt.update"]
     for c in (r for r in kids if r.name == "tbptt.chunk"):
-        assert [r.name for r in _children(c, recs)] == ["tbptt.forward", "tbptt.backward", "tbptt.update"]
+        assert [r.name for r in _children(c, recs)] == inner
     assert sum(r.host_ms for r in kids) <= step.host_ms
     assert spans.summary()["tbptt.chunk"]["count"] == n_chunks
 
