@@ -11,6 +11,10 @@ points at full width:
   mels, 2 s clips at 44.1 kHz, bf16 convs) holding the shipped r7 weights, a
   `val_step` and a few AdamW `train_step`s on interwoven (flanger + chorus +
   phaser) synthetic batches of 32 (kernels K1, K2);
+* K7, the trunk's block between two convs (`ops/trunk_kernels.py`): held
+  against its plain version (the eager chain) at the extractor's six block
+  shapes, timed forward and forward + backward at batch 99 beside its byte
+  bound and the eager chain; a stage-1 step counts six K7 launches each way;
 * the same step in its hand-written weight-gradient configuration,
   `Spectral2DCNN(wgrad_impl="pallas")`: the five 64-channel trunk layers take
   their weight gradient from the CUDA kernel K6 (kernels K1, K2, K6), held
@@ -166,6 +170,7 @@ import torch
 
 import bench_torch
 from bench_torch import LOSSES, LSTM64, N_SAMPLES, PAPER, R7, SR, TBPTT
+from mod_extraction_tpu_torch.ops import trunk_kernels as tk
 from mod_extraction_tpu_torch.ops.launches import launch_counts, read_launch_log, reset_launch_counts
 from mod_extraction_tpu_torch.utils.timing import (
     card_line,
@@ -565,8 +570,12 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
     torch.cuda.reset_peak_memory_stats()
 
     fxk.reset_launch_counts()
+    tk.reset_launch_counts()
     val = {k: v.item() for k, v in task.val_step(val_batch).items()}
     print(f"[val_step r7 bf16 b={BATCH}] " + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items())))
+    if tk.LAUNCHES != {"trunk_block_fwd": K7_A_PASS, "trunk_block_bwd": 0}:
+        fail(f"stage 1 val_step: K7 launched {tk.LAUNCHES}, expected {K7_A_PASS} forward")
+    tk.reset_launch_counts()
     metrics = task.train_step(train_batches[0])  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     step_s = []
@@ -577,6 +586,11 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
         step_s.append(time.perf_counter() - t0)
         print(f"[train_step {i}] loss={metrics['loss'].item():.6f} wall={step_s[-1] * 1e3:.2f} ms")
     launches = dict(fxk.LAUNCHES)
+    want = N_TRAIN_STEPS + 1
+    if tk.LAUNCHES != {"trunk_block_fwd": K7_A_PASS * want, "trunk_block_bwd": K7_A_PASS * want}:
+        fail(f"stage 1: {want} train steps launched K7 {tk.LAUNCHES}, expected {K7_A_PASS} each way a step")
+    print(f"[stage 1 K7] {K7_A_PASS} forward + {K7_A_PASS} backward launches a train step, "
+          f"{K7_A_PASS} forward a val_step")
     print(f"[stage 1 main path] launches={launches}")
 
     finite = all(math.isfinite(v) for v in val.values()) and all(
@@ -644,6 +658,153 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
     )
     k2_row.update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err, plain_device="cpu")
     return [k1_row, k2_row]
+
+
+# ---------------------------------------------------------------------------
+# K7: the trunk's block between two convs
+# ---------------------------------------------------------------------------
+
+K7_A_PASS = len(PAPER["out_channels"])  # K7 launches a forward (and a backward) of the extractor
+K7_BATCH = 99  # the shipped stage-1 batch (configs/train_lfo_interwoven_all_live_r7.yml)
+K7_CHECK_BATCH = 4
+# held against the plain version: what the sums' order leaves (tests/test_torch_trunk_block_cuda.py)
+K7_BF16_STEP, K7_NEAR_ZERO, K7_SUM_REL = 2.0**-7, 1e-5, 1e-3
+
+
+def outside_k7(counts: dict) -> dict:
+    """Launch counts without K7's.  A phase that runs the extractor holds
+    its own kernels' launches; K7's are held a step in stage 1 and in the
+    trunk-block phase."""
+    return {k: v for k, v in counts.items() if k not in tk.LAUNCHES}
+
+
+def trunk_block_shapes(batch: int) -> list:
+    """The extractor's six blocks: (label, conv output in its phase form,
+    Block), frames and rows as the paper's config gives them."""
+    frames = N_SAMPLES // PAPER["hop_len"] + 1
+    h, out = PAPER["n_mels"], []
+    for i, (c, d) in enumerate(zip(PAPER["out_channels"], PAPER["temp_dilations"])):
+        last = i == len(PAPER["out_channels"]) - 1
+        blk = tk.Block(phases=d, width=frames, pool=PAPER["pool_size"][0], ln=not last,
+                       out_dtype=torch.float32 if last else torch.bfloat16)
+        out.append((f"L{i}", (batch * d, c, h, -(-frames // d)), blk))
+        h //= PAPER["pool_size"][0]
+    return out
+
+
+def trunk_block_bytes(shape, blk) -> tuple:
+    """(forward, backward) bytes K7 needs at a block: the conv output's
+    frames read once each way, the output written once and its cotangent
+    read once, the conv output's cotangent written once."""
+    bd, c, h, _ = shape
+    n_in = bd // blk.phases * c * h * blk.width
+    n_out = n_in // h * (h // blk.pool)
+    e_out = torch.empty((), dtype=blk.out_dtype).element_size()
+    return 2 * n_in + e_out * n_out, 2 * n_in + e_out * n_out + 2 * n_in
+
+
+def k7_check(y, bias, alpha, blk) -> dict:
+    """K7 against the plain version on the same inputs: for each output its
+    largest deviation over its tolerance (<= 1 holds; the forward bit for
+    bit: 0, else inf)."""
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (y, bias, alpha)]
+        out = fn(*leaves, blk)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(out.dtype).cuda()
+        return [out, *torch.autograd.grad(out, leaves, g)]
+
+    kern, plain = run(tk.trunk_block), run(tk.trunk_block_plain)
+    res = {}
+    for name, k, p, rounded, is_sum in (("out", kern[0], plain[0], blk.out_dtype == torch.bfloat16, False),
+                                        ("dy", kern[1], plain[1], True, False),
+                                        ("dbias", kern[2], plain[2], True, True),
+                                        ("dalpha", kern[3], plain[3], False, True)):
+        k, p = k.float(), p.float()
+        scale = p.abs().max().item()
+        if is_sum:
+            tol = K7_SUM_REL * scale + (K7_BF16_STEP * p.abs() if rounded else 0)
+        elif rounded:
+            tol = K7_BF16_STEP * p.abs() + K7_NEAR_ZERO * scale
+        else:
+            tol = 1e-5 * (p.abs() + scale)
+        if name == "out":  # the forward gives the eager chain's bits
+            res[name] = 0.0 if torch.equal(k, p) else math.inf
+        else:
+            res[name] = ((k - p).abs() / tol).max().item()
+    return res
+
+
+def run_trunk_block() -> dict:
+    """K7 at the extractor's six blocks: held against its plain version at
+    batch 4 and L0 at batch 99, bit for bit across two launches; then timed
+    at batch 99 (CUDA-event medians of 5 x 20): the forward alone (no
+    gradients), forward + backward, the eager chain's forward + backward,
+    each beside K7's byte bound at 3.35 TB/s.  Returns the kernel row's
+    numbers: the six blocks summed."""
+    gen = torch.Generator().manual_seed(0)
+
+    def inputs(shape, c):
+        y = torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+        return y, (torch.randn(c, generator=gen) * 0.3).cuda(), (torch.rand(c, generator=gen) * 0.5).cuda()
+
+    worst = {}
+    for batch in (K7_CHECK_BATCH, K7_BATCH):
+        for label, shape, blk in trunk_block_shapes(batch):
+            if batch == K7_BATCH and label != "L0":
+                continue
+            res = k7_check(*inputs(shape, shape[1]), blk)
+            print(f"[K7 {label} b={batch} {shape}] against plain, deviation / tolerance: "
+                  + " ".join(f"{k}={v:.3f}" for k, v in res.items()))
+            if max(res.values()) > 1:
+                fail(f"K7 {label} at batch {batch}: {res} past the tolerance")
+            for k, v in res.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+
+    rows, tot = [], dict(fwd_ms=0.0, ms=0.0, plain_ms=0.0, bound_fwd_ms=0.0, bound_ms=0.0, bytes=0,
+                         dev_fwd_ms=0.0, dev_bwd_ms=0.0, plain_dev_ms=0.0)
+    for label, shape, blk in trunk_block_shapes(K7_BATCH):
+        y, bias, alpha = inputs(shape, shape[1])
+        leaves = [t.detach().requires_grad_() for t in (y, bias, alpha)]
+        out = tk.trunk_block(*leaves, blk)
+        g = torch.randn_like(out)
+        first = torch.autograd.grad(out, leaves, g)
+        again = torch.autograd.grad(tk.trunk_block(*leaves, blk), leaves, g)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"K7 {label}: two launches differ")
+
+        def fwd():
+            with torch.no_grad():
+                tk.trunk_block(y, bias, alpha, blk)
+
+        def both(fn=tk.trunk_block):
+            torch.autograd.grad(fn(*leaves, blk), leaves, g)
+
+        fwd_ms, ms = cuda_ms_median(fwd), cuda_ms_median(both)
+        plain_ms = cuda_ms_median(lambda: both(tk.trunk_block_plain), reps=3, batches=3)
+        # device time (back to back, the small blocks' events read the host's pace): every kernel
+        # of the forward (K7's two, torch's mean and variance) and of forward + backward
+        dev_fwd = sum(device_ms_by_kernel(fwd, 10).values())
+        dev_bwd = sum(device_ms_by_kernel(both, 10).values()) - dev_fwd
+        plain_dev_ms = sum(device_ms_by_kernel(lambda: both(tk.trunk_block_plain), 3).values())
+        n_fwd, n_bwd = trunk_block_bytes(shape, blk)
+        b_fwd, b_bwd = n_fwd / HBM_BYTES_S * 1e3, n_bwd / HBM_BYTES_S * 1e3
+        row = dict(block=label, shape=shape, fwd_ms=fwd_ms, ms=ms, plain_ms=plain_ms, bound_fwd_ms=b_fwd,
+                   bound_ms=b_fwd + b_bwd, bytes=n_fwd + n_bwd, dev_fwd_ms=dev_fwd, dev_bwd_ms=dev_bwd,
+                   plain_dev_ms=plain_dev_ms)
+        print(f"[K7 {label} b={K7_BATCH} {shape}] forward {fwd_ms:.4f} ms (bound {b_fwd:.4f}), forward + "
+              f"backward {ms:.4f} ms (bound {b_fwd + b_bwd:.4f}), eager chain {plain_ms:.4f} ms; device "
+              f"time: forward {dev_fwd:.4f}, backward {dev_bwd:.4f}, eager chain {plain_dev_ms:.4f} ms")
+        rows.append(row)
+        for k in tot:
+            tot[k] += row[k]
+        del y, bias, alpha, leaves, out, g, first, again
+    print(f"[K7 six blocks b={K7_BATCH}] forward {tot['fwd_ms']:.4f} ms (bound {tot['bound_fwd_ms']:.4f}), "
+          f"forward + backward {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f}, "
+          f"{100 * tot['bound_ms'] / tot['ms']:.1f} % of it), eager chain {tot['plain_ms']:.4f} ms "
+          f"({tot['plain_ms'] / tot['ms']:.2f}x); device time: forward {tot['dev_fwd_ms']:.4f} ms, "
+          f"backward {tot['dev_bwd_ms']:.4f} ms ({100 * tot['bound_ms'] / (tot['dev_fwd_ms'] + tot['dev_bwd_ms']):.1f} "
+          f"% of the bound), eager chain {tot['plain_dev_ms']:.4f} ms")
+    return dict(tot, worst=worst, blocks=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -2661,7 +2822,7 @@ def run_reference(fxk, lk, rows: list) -> dict:
 
     def count(what: str, want: dict) -> None:
         torch.cuda.synchronize()
-        got = {k: v for k, v in launch_counts().items() if v}
+        got = {k: v for k, v in outside_k7(launch_counts()).items() if v}
         if got != want:
             fail(f"reference {what}: launched {got}, expected {want}")
         for k, v in got.items():
@@ -3133,7 +3294,7 @@ def ddp_world1(rows: list, summary: dict) -> None:
             fail(f"ddp (a) {label}: world 1 under NCCL differs from no group: losses {g['losses']} vs "
                  f"{n['losses']}, {len(diff)} parameter tensors differ (max |d| {worst:.3e}): {diff[:5]}")
         for tag, got in (("group", g["launches"]), ("none", n["launches"])):
-            if {k: v for k, v in got.items() if v} != want_launches[label, tag]:
+            if {k: v for k, v in outside_k7(got).items() if v} != want_launches[label, tag]:
                 fail(f"ddp (a) {label} ({tag}): launches {got}, expected {want_launches[label, tag]}")
         add_ddp_launches(rows, g["launches"], f"(a) {label}")
     print(f"[ddp (a)] world 1 under NCCL == no group, losses and final weights bit for bit, for "
@@ -3304,7 +3465,7 @@ def ddp_two_ranks(rows: list, summary: dict) -> None:
             print(f"[ddp (b) {name} rank {r}] launches {got['launches']}; LSTM plans {got['plans']}; a second "
                   f"step {got['second_step_ms']:.3f} ms (two ranks sharing the card: a correctness run, not a "
                   f"speed figure)")
-            if got["rows"] != BATCH // DDP_RANKS or got["launches"] != full["launches"]:
+            if got["rows"] != BATCH // DDP_RANKS or outside_k7(got["launches"]) != outside_k7(full["launches"]):
                 problems.append(f"ddp (b) {name} rank {r}: {got['rows']} rows, launches {got['launches']}; the "
                                 f"one-process step launched {full['launches']}")
             if sub_batched:
@@ -3918,7 +4079,7 @@ def run_prep(rows: list) -> dict:
     gen = load_script("generate_preproc_datasets_torch")
     warm = load_script("measure_phaser_warmup_delta_torch")
     split = load_script("split_datasets_torch")
-    none = {k: 0 for k in launch_counts()}
+    none = {k: 0 for k in outside_k7(launch_counts())}
     out = dict(launches=dict(none), configs={})
     cpu_ref, procs = None, []
     k1_calls, k1_outs = [], []
@@ -3950,7 +4111,7 @@ def run_prep(rows: list) -> dict:
                 reset_launch_counts()
                 count = gen.generate(copy.deepcopy(cfg), str(dest), PREP_EXAMPLES, "cuda")
                 torch.cuda.synchronize()
-                launches = launch_counts()
+                launches = outside_k7(launch_counts())
                 gen_s = time.perf_counter() - t0
                 n_batches = PREP_EXAMPLES // cfg["data"]["init_args"]["batch_size"]
                 if count != PREP_EXAMPLES or launches != dict(none, flanger=n_batches):
@@ -3980,7 +4141,7 @@ def run_prep(rows: list) -> dict:
             with recorded(fxk, "phaser", k2_calls, k2_outs):
                 l1 = warm.main(val, PREP_WARMUP_BATCH, "cuda")
             torch.cuda.synchronize()
-            launches = launch_counts()
+            launches = outside_k7(launch_counts())
             procs.append(start_plain_on_cpu("phaser_plain", k2_calls, tmp))
             if launches != dict(none, phaser=2) or not all(math.isfinite(v) and v > 0 for v in l1):
                 fail(f"prep warm-up delta: l1 {l1}, launches {launches}; expected 2 K2 launches")
@@ -4008,7 +4169,9 @@ def run_prep(rows: list) -> dict:
             epochs = [r["epoch"] for r in records if r["phase"] == "epoch"]
             steps = [r["step"] for r in records if r["phase"] == "train_step"]
             per_epoch = dict(none, flanger=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES,
-                             phaser=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES)
+                             phaser=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES,
+                             trunk_block_fwd=K7_A_PASS * (FIT_TRAIN_BATCHES + FIT_VAL_BATCHES),
+                             trunk_block_bwd=K7_A_PASS * FIT_TRAIN_BATCHES)
             counts = read_launch_log(str(log))
             if epochs != [0, 1] or steps != list(range(1, 2 * FIT_TRAIN_BATCHES + 1)) or counts != [per_epoch] * 2:
                 fail(f"prep train_resumable_torch.sh: epochs {epochs}, steps {steps}, launches a process {counts}")
@@ -4129,7 +4292,7 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("fx.cu", "lstm.cu", "conv_wgrad.cu")
+    sources = ("fx.cu", "lstm.cu", "conv_wgrad.cu", "trunk_block.cu")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(lambda src: cuda_build.build(src, verbose=True), sources))
     print(f"[build] {' '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
@@ -4149,6 +4312,15 @@ def main() -> int:
     cpu_sides = {fn: start_cpu_side(fn, tmp.name) for fn in ("stage2_cpu_reference", "h160_cpu_reference")}
     atexit.register(lambda: [(p.kill(), p.wait()) for p, _, _ in cpu_sides.values() if p.poll() is None])
     rows = timed("stage 1", run_stage1, fxk, rng)
+    k7 = timed("trunk block", run_trunk_block)
+    k7_row = kernel_row(
+        "trunk_block", "mod_extraction_tpu_torch/csrc/trunk_block.cu",
+        "none: the JAX package leaves this chain to XLA, which fuses it",
+        K7_A_PASS * (1 + 2 * (N_TRAIN_STEPS + 1)), max(k7["worst"].values()), k7["ms"], k7["plain_ms"],
+        k7["bytes"], 0, None,
+    )
+    k7_row.update(err_is="largest deviation over its tolerance (<= 1 holds)", fwd_ms=k7["fwd_ms"],
+                  bound_fwd_ms=k7["bound_fwd_ms"], blocks=k7["blocks"], batch=K7_BATCH)
     rows += timed("stage 1 (wgrad=pallas)", run_stage1_kernel_wgrad, fxk, ck, rng)
     h64 = {}
     rows += timed("stage 2", run_stage2, fxk, lk, rng, rows[0], h64, cpu_sides["stage2_cpu_reference"])
@@ -4190,7 +4362,7 @@ def main() -> int:
           + "; the CPU sides beside the card saved " + ", ".join(f"{k} {v:.1f} s" for k, v in saved.items()))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + [k7_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

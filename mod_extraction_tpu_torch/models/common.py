@@ -29,10 +29,15 @@ class PReLU(nn.Module):
         self.keep_dtype = keep_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
-        if self.keep_dtype:
-            a = a.to(x.dtype)
-        return torch.where(x >= 0, x, a * x)
+        return prelu(x, self.alpha, self.keep_dtype)
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor, keep_dtype: bool = False) -> torch.Tensor:
+    """`PReLU`'s function of x and its (C,) alpha."""
+    a = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    if keep_dtype:
+        a = a.to(x.dtype)
+    return torch.where(x >= 0, x, a * x)
 
 
 def layer_norm_no_affine(

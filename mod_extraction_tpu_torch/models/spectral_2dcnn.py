@@ -9,6 +9,9 @@ Numerics match the JAX main path: float32 frontend, LayerNorm statistics
 and activation I/O in float32, convs in `compute_dtype` (bfloat16 on the
 main path) with bf16 outputs and bias, float32 head.  The trunk runs NCHW
 internally; the public input and output shapes are those of the JAX module.
+Between two convs the block (bias, pool, PReLU, LayerNorm, cast) is one
+call, `ops/trunk_kernels.py::trunk_block`: K7 on the card, the eager chain
+on the CPU.
 Parameters live in float32; the bf16 casts sit inside the forward, so
 gradients arrive in float32.
 
@@ -27,19 +30,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mod_extraction_tpu_torch.models.common import (
-    PReLU,
-    layer_norm_no_affine,
-    lecun_normal_,
-    max_pool_floor,
-)
-from mod_extraction_tpu_torch.ops.conv import conv2d_freq_folded, conv2d_same, foldable
+from mod_extraction_tpu_torch.models.common import PReLU, layer_norm_no_affine, lecun_normal_
+from mod_extraction_tpu_torch.ops.conv import conv2d_freq_folded, conv2d_same_phases, foldable
 from mod_extraction_tpu_torch.ops.conv_kernels import (
     make_conv2d_custom,
     pair_supported,
     wgrad_supported,
 )
 from mod_extraction_tpu_torch.ops.stft import mel_spectrogram, spec_augment
+from mod_extraction_tpu_torch.ops.trunk_kernels import Block, trunk_block
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -53,10 +52,19 @@ def trunk_conv(
     conv_impl: str = "lax",
     wgrad_impl: str = "xla",
     grad_barrier: bool = False,
-) -> torch.Tensor:
-    """One trunk conv + bias on the selected compute path (the JAX
-    `_TrunkConv`): x (B, I, F, T), w OIHW, all in the compute dtype.  A layer
-    that an option does not cover takes the plain `conv2d_same`.
+) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+    """One trunk conv on the selected compute path (the JAX `_TrunkConv`):
+    x (B, I, F, T), w OIHW in the compute dtype, b the float32 bias
+    parameter.  A layer that an option does not cover takes the plain
+    `conv2d_same`.  Returns (y, d, bias): the conv over d time phases
+    (`ops/conv.py::conv2d_same_phases`; d = 1: the (B, O, F, T) conv) and
+    the bias still to add, None where the conv added it.
+
+    On the default path the card's library adds the bias in a pass of its
+    own after the product; that pass moves into the block after the conv
+    (`ops/trunk_kernels.py`), which adds it as the library did.  The CPU's
+    library adds it inside its sums, so there the conv keeps it, and a CPU
+    run is what it was.
 
     Without "pair" the data gradient is autograd of the forward conv, the
     library's own backward-data pass.  (The JAX module names "lax" there,
@@ -69,7 +77,7 @@ def trunk_conv(
     # the s2b framing only reshapes and strides: any bin-dilation-1 layer
     s2b_ok = wgrad_impl == "s2b" and bin_dil == 1
     if conv_impl == "freq_folded" and foldable(w.shape, bin_dil, f):
-        return conv2d_freq_folded(x, w, b, bin_dil, temp_dil)
+        return conv2d_freq_folded(x, w, b.to(x.dtype), bin_dil, temp_dil), 1, None
     if (pair_ok or wgrad_ok or s2b_ok or grad_barrier) and bin_dil == 1:
         conv = make_conv2d_custom(
             temp_dil,
@@ -78,8 +86,10 @@ def trunk_conv(
             wgrad_impl="pallas" if wgrad_ok else ("s2b" if s2b_ok else "xla"),
             with_bias=True,
         )
-        return conv(x, w, b)
-    return conv2d_same(x, w, b, bin_dil, temp_dil)
+        return conv(x, w, b.to(x.dtype)), 1, None
+    if x.is_cuda:
+        return (*conv2d_same_phases(x, w, None, bin_dil, temp_dil), b)
+    return (*conv2d_same_phases(x, w, b.to(x.dtype), bin_dil, temp_dil), None)
 
 
 class Spectral2DCNN(nn.Module):
@@ -186,20 +196,27 @@ class Spectral2DCNN(nn.Module):
         cd = self.compute_dtype
         if self.act_compute:
             h = h.to(cd)
+        if self.use_ln:
+            h = layer_norm_no_affine(
+                h, dims=(2, 3), stat_dtype=torch.float32 if self.act_compute else None
+            )
+        n = len(self.convs)
         for i, (conv, prelu, b_dil, t_dil) in enumerate(
             zip(self.convs, self.prelus, self.bin_dil, self.temp_dil)
         ):
-            if self.use_ln:
-                h = layer_norm_no_affine(
-                    h, dims=(2, 3), stat_dtype=torch.float32 if self.act_compute else None
-                )
             barrier = self.grad_barrier in (True, "all") or (self.grad_barrier == "l0" and i == 0)
-            h = trunk_conv(
-                h.to(cd), conv.weight.to(cd), conv.bias.to(cd), b_dil, t_dil,
+            y, phases, bias = trunk_conv(
+                h.to(cd), conv.weight.to(cd), conv.bias, b_dil, t_dil,
                 self.conv_impl, self.wgrad_impl, barrier,
             )
-            h = max_pool_floor(h, self.pool_size)
-            h = prelu(h)
+            # bias, pool, PReLU, then the next conv's LayerNorm and cast; the
+            # last block hands PReLU's output to the frequency mean
+            last = i == n - 1
+            h = trunk_block(y, bias, prelu.alpha, Block(
+                phases=phases, width=n_frames, pool=self.pool_size[0],
+                ln=self.use_ln and not last, narrow=self.act_compute,
+                out_dtype=cd if self.act_compute or not last else torch.float32,
+            ))
 
         latent = h.to(torch.float32).mean(dim=2)  # freq mean -> (B, C, frames)
         out = torch.sigmoid(self.out(latent.transpose(1, 2)))  # (B, frames, L)

@@ -55,6 +55,16 @@ def conv2d_same(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, bin_dil: int, temp_dil: int
 ) -> torch.Tensor:
     """x (B, I, H, W), w (O, I, kh, kw) -> (B, O, H, W)."""
+    y, d = conv2d_same_phases(x, w, b, bin_dil, temp_dil)
+    return y if d == 1 else from_time_phases(y, d, x.shape[3])
+
+
+def conv2d_same_phases(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, bin_dil: int, temp_dil: int
+) -> tuple[torch.Tensor, int]:
+    """`conv2d_same` before its time phases are put back: (y, d), y the
+    conv over d time phases, (B*d, O, H, ceil(W/d)) as `time_phases` lays
+    them out; d = 1 (a layer without them): y is the (B, O, H, W) conv."""
     fl, fr = same_pads_1d(w.shape[2], bin_dil)
     if fl != fr:
         x = F.pad(x, (0, 0, fl, fr))
@@ -66,12 +76,12 @@ def conv2d_same(
             time_phases(x, temp_dil), w, b,
             padding=(fl, (kt - 1) // 2), dilation=(bin_dil, 1),
         )
-        return from_time_phases(y, temp_dil, x.shape[3])
+        return y, temp_dil
     tl, tr = same_pads_1d(kt, temp_dil)
     if tl != tr:
         x = F.pad(x, (tl, tr))
         tl = 0
-    return F.conv2d(x, w, b, padding=(fl, tl), dilation=(bin_dil, temp_dil))
+    return F.conv2d(x, w, b, padding=(fl, tl), dilation=(bin_dil, temp_dil)), 1
 
 
 def conv2d_same_backward(x, w, g, temp_dil: int, want_dx: bool, want_dw: bool):

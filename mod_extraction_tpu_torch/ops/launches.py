@@ -1,5 +1,5 @@
 """The launch counts of every kernel wrapper (`fx_kernels`, `lstm_kernels`,
-`conv_kernels`) in one place, and their record across processes.
+`conv_kernels`, `trunk_kernels`) in one place, and their record across processes.
 
 A wrapper counts its Python calls.  A CUDA graph replays its kernels
 without them: the TBPTT chunk update (`train/tbptt_task.py`) and the
@@ -17,9 +17,9 @@ from __future__ import annotations
 import json
 import os
 
-from mod_extraction_tpu_torch.ops import conv_kernels, fx_kernels, lstm_kernels
+from mod_extraction_tpu_torch.ops import conv_kernels, fx_kernels, lstm_kernels, trunk_kernels
 
-_MODULES = (fx_kernels, lstm_kernels, conv_kernels)
+_MODULES = (fx_kernels, lstm_kernels, conv_kernels, trunk_kernels)
 #: the environment variable naming the file `log_launch_counts` appends to
 LOG_ENV = "MODX_LAUNCH_LOG"
 
