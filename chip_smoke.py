@@ -1370,9 +1370,10 @@ def tbptt_counted_steps(fxk, lk, task, train_batches, label: str) -> tuple:
     K4 and K5 by their device events, once a chunk update.  The chunk
     updates replay a CUDA graph, so K4's and K5's Python counters tick only
     at the task's first update (eager) and its capture, both in step 0, the
-    one step with a `tbptt.capture` span.  Then the steps after the first
-    again, unprofiled and timed.  Returns (the launches summed, K3-K5's
-    from their device events; the last metrics; the timed steps' seconds)."""
+    one step with a `tbptt.capture` span; after it the task's graph cache
+    holds that one shape, captured.  Then the steps after the first again,
+    unprofiled and timed.  Returns (the launches summed, K3-K5's from their
+    device events; the last metrics; the timed steps' seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mod_extraction_tpu_torch.utils import spans
@@ -1395,9 +1396,10 @@ def tbptt_counted_steps(fxk, lk, task, train_batches, label: str) -> tuple:
         first = 2 if i == 0 else 0
         want = dict(per_step, lstm_train_forward=first, lstm_backward=first)
         got = {**python, **device}
-        if python != want or got != per_step or captures != int(i == 0):
+        kept = task.graphs.captured()
+        if python != want or got != per_step or captures != int(i == 0) or len(kept) != 1:
             fail(f"{label} train_step {i}: Python launches {python}, expected {want}; device events {device}, "
-                 f"expected {per_step}; captures {captures}")
+                 f"expected {per_step}; captures {captures}; captured shapes kept {kept}, expected one")
         total = {k: total[k] + got[k] for k in per_step}
         print(f"[{label} train_step {i}] " + " ".join(f"{k}={v.item():.6f}" for k, v in sorted(metrics.items()))
               + f" launches: device {got}, Python {python}, captures {captures}")
@@ -1849,10 +1851,12 @@ def lstm_device_launches(prof) -> dict:
 def profiled_artifact_drive(lk, art, x, sizes, knobs) -> dict:
     """`drive` of a loaded artifact under the profiler, counted: its calls,
     runs of one length, replays and captures (the spans), K3's Python counter
-    (an eager call ticks it once, a capture twice: its eager run and the
-    captured call; a replay not at all) and K3's device events (once a call,
-    once more a capture); `counts_ok` whether they agree, `same` whether
-    the drive equals the eager program (`drive_eager`) bit for bit."""
+    (an eager call and a capture tick it once, a replay not at all), K3's
+    device events (once a call) and the captured shapes the artifact's
+    graph cache keeps (`graphs.captured()`: at most its bound and the
+    captures, each a length driven); `counts_ok` whether they agree,
+    `same` whether the drive equals the eager program (`drive_eager`) bit
+    for bit."""
     from mod_extraction_tpu_torch.utils import spans
 
     lk.reset_launch_counts()
@@ -1864,15 +1868,19 @@ def profiled_artifact_drive(lk, art, x, sizes, knobs) -> dict:
     spans.clear()
     replays, captures = (found.get(f"processor.{k}", {"count": 0})["count"] for k in ("replay", "capture"))
     python, device_k3 = dict(lk.LAUNCHES), lstm_device_launches(prof)["lstm_forward"]
+    kept = art.graphs.captured()
     runs = sum(1 for i, n in enumerate(sizes) if i == 0 or n != sizes[i - 1])
     y_eager, s_eager = drive_eager(art, x, sizes, knobs)
     calls = len(sizes)
     return dict(
         y=y, state=state, calls=calls, runs=runs, replays=replays, device_k3=device_k3,
-        counts=f"{calls - replays} eager, {replays} replays, {captures} captures; K3 in Python {python['lstm_forward']}",
-        counts_ok=(calls - runs <= replays <= calls and captures <= min(runs, replays) and device_k3 == calls + captures
-                   and python == dict(lstm_forward=calls - replays + 2 * captures, lstm_train_forward=0,
-                                      lstm_backward=0)),
+        counts=f"{calls - replays} eager, {replays} replays, {captures} captures; K3 in Python {python['lstm_forward']}"
+               f"; {len(kept)} captured shapes kept",
+        counts_ok=(calls - runs <= replays <= calls and captures <= min(runs, replays) and device_k3 == calls
+                   and python == dict(lstm_forward=calls - replays + captures, lstm_train_forward=0,
+                                      lstm_backward=0)
+                   and len(kept) <= min(art.graphs.size, captures)
+                   and all(k[0] == art.n_channels and k[1] in sizes for k in kept)),
         same=bool(np.array_equal(y, y_eager)) and all(torch.equal(state[k], s_eager[k]) for k in ("h", "c", "phase")))
 
 
@@ -2072,8 +2080,8 @@ def run_serving(lk, rng) -> dict:
                     if not r["counts_ok"]:
                         fail(f"serving {what}: artifact over {r['calls']} buffers in {r['runs']} runs of one "
                              f"length: {r['counts']}; expected a replay at each call of a length seen before, at "
-                             f"most one capture a run, K3 in Python once an eager call and twice a capture, and "
-                             f"on the device once a call and once more a capture")
+                             f"most one capture a run, K3 in Python once an eager call and once a capture, and "
+                             f"on the device once a call; captured shapes kept only among those driven")
                     if not r["same"]:
                         fail(f"serving {what}: the artifact's process_np differs from its eager program")
                 if not np.isfinite(y_chunk).all() or y_chunk.shape != x.shape:

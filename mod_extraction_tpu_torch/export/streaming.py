@@ -18,12 +18,10 @@ channel, and the phase of its cos LFO.  Channels are the batch of K3
   plain version, and the card, where it launches the kernel
   (`compiled_artifact_platforms: ["cpu", "cuda"]`).
 
-On the card, `CompiledStreamingProcessor.process_np` replays the loaded
-program as a CUDA graph for a buffer shape it has seen before (among the
-last `GRAPH_SHAPES`): one pinned copy in (the buffer and the knobs), the
-carried state copied in, the replay, one copy of the new state and one
-copy out.  A shape's first call, the tensor API `process`, the live
-`StreamingEffectModel` and the CPU run the program eagerly.
+On the card, `CompiledStreamingProcessor.process_np` runs the loaded
+program by the CUDA-graph rule of `utils/graphs.py`, keyed by buffer
+shape.  The tensor API `process`, the live `StreamingEffectModel` and the
+CPU run the program eagerly.
 
 Everything runs on the card unless the caller asks for the CPU.
 """
@@ -35,7 +33,6 @@ import io
 import json
 import math
 import os
-from collections import OrderedDict
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -49,6 +46,7 @@ from mod_extraction_tpu_torch.ops import lstm_kernels  # noqa: F401  (registers 
 from mod_extraction_tpu_torch.paths import ensure_dir
 from mod_extraction_tpu_torch.train.checkpoints import save_weights
 from mod_extraction_tpu_torch.utils.device import resolve_device
+from mod_extraction_tpu_torch.utils.graphs import GraphCache
 from mod_extraction_tpu_torch.utils.spans import span
 
 State = Dict[str, torch.Tensor]
@@ -192,15 +190,12 @@ def serialize_streaming_processor(sm: StreamingEffectModel) -> bytes:
     return buf.getvalue()
 
 
-GRAPH_SHAPES = 8  # buffer shapes a processor remembers, least recently used out
-
-
 class _Replay:
-    """One buffer shape's captured call: the pinned staging buffer (the
-    samples, then the three knobs) and its device copy, which the graph
-    reads; the graph; the output it writes and its pinned host copy."""
+    """One buffer shape's staging: the pinned buffer (the samples, then the
+    three knobs) and its device copy, which the program reads (`x`,
+    `knobs`); the output's pinned host copy."""
 
-    __slots__ = ("stage", "stage_x", "stage_knobs", "inp", "graph", "y", "out", "out_np")
+    __slots__ = ("stage", "stage_x", "stage_knobs", "inp", "x", "knobs", "out", "out_np")
 
     def __init__(self, c: int, t: int, device: torch.device) -> None:
         n = c * t
@@ -208,23 +203,23 @@ class _Replay:
         flat = self.stage.numpy()
         self.stage_x, self.stage_knobs = flat[:n].reshape(c, t), flat[n:]
         self.inp = torch.empty(n + 3, dtype=torch.float32, device=device)
+        self.x, self.knobs = self.inp[:n].view(c, t), self.inp[n:].unbind()
         self.out = torch.empty(c, t, dtype=torch.float32, pin_memory=True)
         self.out_np = self.out.numpy()
-        self.graph = self.y = None
 
 
 class CompiledStreamingProcessor:
     """Drives a reloaded processor artifact buffer by buffer: what a host
     needs, with no dependency on the model code.
 
-    On a CUDA device `process_np` replays the program as a CUDA graph for a
-    buffer shape it has seen before among the last `GRAPH_SHAPES`: the
-    graph is captured at the shape's second call, and a shape's first call
-    runs the program eagerly, so a host whose buffer size never repeats pays
-    no capture.  The graph reads the carried state from one packed device
-    slot (h, c, phase), into which each call copies the caller's state, and
-    writes the new state back into it; a call returns views of one copy of
-    the slot, so a state a caller holds keeps its values."""
+    On a CUDA device `process_np` runs a buffer shape's first call (among
+    the last 8) as the CPU does, so a host whose buffer size never repeats
+    pays no capture and no staging; its later calls, captured then
+    replayed, make one pinned copy in (the buffer and the knobs) and one
+    out.  They read the carried state from one packed device slot (h, c,
+    phase), into which each call copies the caller's state, and write the
+    new state back into it; a call returns views of one copy of the slot,
+    so a state a caller holds keeps its values."""
 
     def __init__(self, artifact: bytes, n_channels: int, n_hidden: int,
                  device: str | torch.device = "cuda"):
@@ -236,8 +231,9 @@ class CompiledStreamingProcessor:
         self._call = exported.module()
         self.n_channels = n_channels
         self.n_hidden = n_hidden
-        self._graphs: OrderedDict = OrderedDict()  # (channels, length) -> _Replay, or None if seen once
-        if self.device.type == "cuda":  # the packed state the graphs read and write
+        # the calls' staging and graphs by (channels, length), 8 shapes kept
+        self.graphs = GraphCache(8, self.device, "processor.capture", "processor.replay")
+        if self.device.type == "cuda":  # the packed state the staged program reads and writes
             self._slot = torch.zeros(2 * n_channels * n_hidden + 1, dtype=torch.float32, device=self.device)
 
     def init_state(self) -> State:
@@ -247,49 +243,33 @@ class CompiledStreamingProcessor:
         return self._call(state, x, lfo_rate, lfo_depth, lfo_stereo_phase_offset)
 
     def process_np(self, state, x: np.ndarray, lfo_rate=0.2, lfo_depth=0.6667, stereo_offset=0.0):
-        """numpy in, numpy out, the state on the device; on a CUDA device
-        and a buffer shape seen before, one graph replay, else the eager
-        program (`_process_np`).  The spans are `_process_np`'s:
-        `processor.input` stages the buffer and the knobs and copies them
-        in, `processor.run` copies the state in, replays
-        (`processor.replay`; at the shape's second call `processor.capture`
-        before it) and copies the new state, and `processor.output` copies
-        the output back, which waits for the device."""
+        """numpy in, numpy out, the state on the device; `_process_np` on the
+        CPU, for a buffer not (channels, length) and, through `graphs`, for
+        a shape's first call.  A later call: `processor.input` stages the
+        buffer and the knobs and copies them in, `processor.run` copies the
+        state in, captures and replays the program and copies the state
+        out, `processor.output` copies the output back, which waits."""
         x = np.asarray(x)
-        if self.device.type != "cuda" or not self._seen(x.shape):
+        if self.device.type != "cuda" or x.ndim != 2 or x.shape[0] != self.n_channels or x.shape[1] < 1:
             return _process_np(self, state, x, lfo_rate, lfo_depth, stereo_offset)
+        entry = self.graphs.entry(x.shape, lambda: None)
+        if not entry.ran:
+            return self.graphs.run(entry, lambda: _process_np(self, state, x, lfo_rate, lfo_depth, stereo_offset))
         with span("processor.call", device=False), torch.no_grad(), torch.cuda.device(self.device):
             with span("processor.input", device=False):
-                entry = self._graphs[x.shape]
-                if entry is None:
-                    entry = self._graphs[x.shape] = _Replay(*x.shape, self.device)
-                np.copyto(entry.stage_x, x, casting="unsafe")
-                entry.stage_knobs[:] = (float(lfo_rate), float(lfo_depth), float(stereo_offset))
-                entry.inp.copy_(entry.stage, non_blocking=True)
+                if entry.buffers is None:
+                    entry.buffers = _Replay(*x.shape, self.device)
+                r = entry.buffers
+                np.copyto(r.stage_x, x, casting="unsafe")
+                r.stage_knobs[:] = (float(lfo_rate), float(lfo_depth), float(stereo_offset))
+                r.inp.copy_(r.stage, non_blocking=True)
             with span("processor.run", device=False):
                 self._state_in(state)
-                if entry.graph is None:
-                    with span("processor.capture", device=False):
-                        self._capture(entry, *x.shape)
-                with span("processor.replay", device=False):
-                    entry.graph.replay()
+                y = self.graphs.run(entry, lambda: self._run_slot(r))
                 state = self._slot_state(self._slot.clone())
             with span("processor.output", device=False):
-                entry.out.copy_(entry.y)
-                return entry.out_np.copy(), state
-
-    def _seen(self, shape: Tuple[int, ...]) -> bool:
-        """Whether a call of this buffer shape came before, among the last
-        `GRAPH_SHAPES` shapes; the shape is noted either way."""
-        if len(shape) != 2 or shape[0] != self.n_channels or shape[1] < 1:
-            return False
-        if shape in self._graphs:
-            self._graphs.move_to_end(shape)
-            return True
-        self._graphs[shape] = None
-        if len(self._graphs) > GRAPH_SHAPES:
-            self._graphs.popitem(last=False)
-        return False
+                r.out.copy_(y)
+                return r.out_np.copy(), state
 
     def _slot_state(self, packed: torch.Tensor) -> State:
         """h, c and phase as views of a packed state (three `as_strided`
@@ -309,22 +289,11 @@ class CompiledStreamingProcessor:
     def _write_slot(self, state: State) -> None:
         torch.cat((state["h"].reshape(-1), state["c"].reshape(-1), state["phase"].reshape(1)), out=self._slot)
 
-    def _capture(self, entry: _Replay, c: int, t: int) -> None:
-        """Capture the program over the static input and the slot, after one
-        eager run of the shape on the capture stream; the graph ends by
-        writing the new state into the slot."""
-        n = c * t
-        x, knobs = entry.inp[:n].view(c, t), (entry.inp[n], entry.inp[n + 1], entry.inp[n + 2])
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self.process(self._slot_state(self._slot), x, *knobs)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-            y, new = self.process(self._slot_state(self._slot), x, *knobs)
-            self._write_slot(new)
-        entry.graph, entry.y = graph, y
+    def _run_slot(self, r: _Replay) -> torch.Tensor:
+        """The program's output over `r`'s input and the slot, its new state written into the slot."""
+        y, new = self.process(self._slot_state(self._slot), r.x, *r.knobs)
+        self._write_slot(new)
+        return y
 
 
 def export_streaming_model(

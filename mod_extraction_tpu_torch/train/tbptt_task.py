@@ -35,15 +35,14 @@ its schedule advanced once a chunk, and one gradient all-reduce a chunk
 
 On the card the chunk updates of a conditioning fixed for the step (the
 frozen extractor, a RandomLFO, the ground truth; no param model) replay a
-CUDA graph, one launch an update in place of about seventy: the step
-lays its conditioning, dry and wet audio out chunk by chunk in static
-buffers (`_ChunkGraph`, one per batch and chunk shape), and the graph
-reads its chunk through a device-side index it advances itself, carries
-(h, c) in a static slot and writes its output into the chunk's slot.  The
-optimizer is then capturable (`lfo_task.optimizer_form`).  A shape's first
-update runs eagerly, on the stream that then captures it.  The CPU, data
-parallelism, the unfrozen extractor and the param model keep the eager
-loop.
+CUDA graph by the rule of `utils/graphs.py`, one launch an update in place
+of about seventy: the step lays its conditioning, dry and wet audio out
+chunk by chunk in static buffers (`_ChunkGraph`, one per batch and chunk
+shape), and the graph reads its chunk through a device-side index it
+advances itself, carries (h, c) in a static slot and writes its output
+into the chunk's slot.  The optimizer is then capturable
+(`lfo_task.optimizer_form`).  The CPU, data parallelism, the unfrozen
+extractor and the param model keep the eager loop.
 
 Invalid LFOs keep their place in the batch with weight zero, so every
 weighted mean leaves them out (the JAX package's deviation from the
@@ -52,7 +51,6 @@ reference, which drops them).
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -87,22 +85,19 @@ from mod_extraction_tpu_torch.train.lfo_task import (
 )
 from mod_extraction_tpu_torch.train.render import RenderConfig, render_batch
 from mod_extraction_tpu_torch.utils.device import resolve_device, set_float32_numerics
+from mod_extraction_tpu_torch.utils.graphs import GraphCache
 from mod_extraction_tpu_torch.utils.interp import linear_interpolate_last_dim
 from mod_extraction_tpu_torch.utils.spans import span
 
 
-GRAPH_KEYS = 4  # chunk shapes a task keeps captured, least recently used out
-
-
 class _ChunkGraph:
-    """One chunk shape's static update: the step's conditioning, dry and
+    """One chunk shape's static buffers: the step's conditioning, dry and
     wet audio from the warm-up's end laid out chunk by chunk, (B, L + C_in
     + C_out, n_chunks, step); the batch weights and their global sum; the
     carried (h, c); the index of the chunk the update reads, which it
-    advances; the outputs' slots (B, C_out, n_chunks, step); on the card
-    the captured update, once a first one has run eagerly (`warm`)."""
+    advances; the outputs' slots (B, C_out, n_chunks, step)."""
 
-    __slots__ = ("split", "inputs", "weights", "state", "index", "ys", "warm", "graph")
+    __slots__ = ("split", "inputs", "weights", "state", "index", "ys")
 
     def __init__(self, b: int, split: Tuple[int, int, int], n: int, s: int, hid: int, device) -> None:
         f32 = dict(dtype=torch.float32, device=device)
@@ -112,8 +107,6 @@ class _ChunkGraph:
         self.state = torch.empty(2, b, hid, **f32)
         self.index = torch.zeros(1, dtype=torch.long, device=device)
         self.ys = torch.empty(b, split[2], n, s, **f32)
-        self.warm = False
-        self.graph = None
 
     def load(self, lat, dry, wet, start: int, bw: BatchWeights, hidden) -> None:
         """The step's inputs from sample `start`, its weights and the
@@ -206,12 +199,10 @@ class TBPTTEffectModelingTask(TrainableTask):
             self.trained_model.parameters(), optimizer, lr_schedule, capturable=graphs
         )
         self.capturable = graphs and can_capture(self.optimizer)
-        # the chunk updates from static step buffers (`_static_chunks`),
-        # replayed as CUDA graphs on the card; off, the eager loop (tests and
-        # tools turn it off to hold the two against each other)
+        # the chunk updates from static buffers (`_static_chunks`), 4 shapes (B, split, n_chunks,
+        # step) kept in `graphs`; off, the eager loop (tests and tools hold the two together)
         self.static_chunks = self.capturable
-        self._graphs: OrderedDict = OrderedDict()  # (B, split, n_chunks, step) -> _ChunkGraph
-        self._capture_stream = None
+        self.graphs = GraphCache(4, self.device, "tbptt.capture")
 
     def state_dict(self) -> Dict:
         """The trainable state plus a frozen extractor's weights, as the JAX
@@ -226,9 +217,7 @@ class TBPTTEffectModelingTask(TrainableTask):
     def load_state_dict(self, state: Dict) -> None:
         """The state, its optimizer put back in the task's form; captured
         updates are dropped (they hold the optimizer state's old tensors)."""
-        if self._graphs and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._graphs.clear()
+        self.graphs.clear()
         super().load_state_dict(state)
         if "lfo_model" in state:
             self.lfo_model.load_state_dict(state["lfo_model"])
@@ -404,46 +393,24 @@ class TBPTTEffectModelingTask(TrainableTask):
 
     def _static_chunks(self, lat, dry, wet, bw: BatchWeights, hidden, n_chunks: int) -> torch.Tensor:
         """The chunk updates from the static buffers of the step's shape
-        (`_ChunkGraph`, filled once), each `_static_update`: on the card
-        one graph replay, but a shape's first update, eager on the capture
-        stream, and its second, captured then replayed; on the CPU each
-        eagerly.  The schedule advances after each.  Returns the outputs
+        (`_ChunkGraph`, filled once), each `_static_update` run through
+        `graphs`; the schedule advances after each.  Returns the outputs
         (B, C_out, n_chunks * step), a view of the shape's slots."""
         if not self._static_conditioning():
             raise ValueError("static chunk updates need a conditioning fixed for the step: "
                              "no unfrozen extractor and no param model")
         b, s = dry.shape[0], self.step_n_samples
         split = (lat.shape[1], dry.shape[1], wet.shape[1])
-        g = self._chunk_graph((b, split, n_chunks, s))
+        entry = self.graphs.entry((b, split, n_chunks, s), lambda: _ChunkGraph(
+            b, split, n_chunks, s, self.effect_model.n_hidden, self.device))
+        g = entry.buffers
         g.load(lat, dry, wet, self.warmup_n_samples, bw, hidden)
-        on_card = self.device.type == "cuda"
         for _ in range(n_chunks):
             with span("tbptt.chunk"):
-                if not on_card:
-                    self._static_update(g)
-                elif g.graph is not None:
-                    g.graph.replay()
-                elif not g.warm:
-                    self._on_capture_stream(lambda: self._static_update(g))
-                    g.warm = True
-                else:
-                    with span("tbptt.capture", device=False):
-                        g.graph = self._capture(g)
-                    g.graph.replay()
+                self.graphs.run(entry, lambda: self._static_update(g))
                 if self.scheduler is not None:
                     self.scheduler.step()
         return g.ys.view(b, split[2], n_chunks * s)
-
-    def _chunk_graph(self, key) -> _ChunkGraph:
-        g = self._graphs.get(key)
-        if g is not None:
-            self._graphs.move_to_end(key)
-            return g
-        b, split, n, s = key
-        g = self._graphs[key] = _ChunkGraph(b, split, n, s, self.effect_model.n_hidden, self.device)
-        if len(self._graphs) > GRAPH_KEYS:
-            self._graphs.popitem(last=False)
-        return g
 
     def _static_update(self, g: _ChunkGraph) -> None:
         """One chunk update read from `g` at its index: the chunk's
@@ -460,25 +427,6 @@ class TBPTTEffectModelingTask(TrainableTask):
             torch.stack(hidden, out=g.state)
             g.ys.index_copy_(2, g.index, y.unsqueeze(2))
             g.index += 1
-
-    def _on_capture_stream(self, fn) -> None:
-        """`fn` on the task's capture stream, ordered after the current
-        stream's work and before what follows it."""
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self._capture_stream.wait_stream(current)
-        with torch.cuda.stream(self._capture_stream):
-            fn()
-        current.wait_stream(self._capture_stream)
-
-    def _capture(self, g: _ChunkGraph) -> torch.cuda.CUDAGraph:
-        """`_static_update` of `g` captured on the capture stream (its own
-        memory pool), after a first update ran there eagerly."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._capture_stream, capture_error_mode="thread_local"):
-            self._static_update(g)
-        return graph
 
     def train_steps(
         self, batches: Sequence[Dict], corpus: Optional[torch.Tensor] = None,

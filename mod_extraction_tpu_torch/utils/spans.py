@@ -114,11 +114,11 @@ class _Span:
         return False
 
 
-def span(name: str, device: bool = True):
+def span(name: Optional[str], device: bool = True):
     """A context over one layer's work: recorded while the torch profiler
-    is on, the shared no-op otherwise.  `device=False` times it on the host
-    alone, without the CUDA events."""
-    if not _profiler_enabled():
+    is on, the shared no-op otherwise and for a `None` name.
+    `device=False` times it on the host alone, without the CUDA events."""
+    if name is None or not _profiler_enabled():
         return _NOOP
     return _Span(name, device)
 

@@ -99,16 +99,17 @@ def test_replay_matches_eager_on_card(shipped_dirs, hid):
         assert same_state(s_rep, s_eager), f"call {k}: state differs"
         i += n
     assert same_state(held_rep, held_copy)
-    assert set(proc._graphs) == {(2, 128), (2, 64)}
-    assert all(e is not None and e.graph is not None for e in proc._graphs.values())
+    assert set(proc.graphs.keys()) == set(proc.graphs.captured()) == {(2, 128), (2, 64)}
 
 
 @pytest.mark.cuda
 def test_replay_shape_cache_is_bounded(shipped_dirs):
     """Twelve buffer shapes two calls each, then the first again twice: at
-    most `GRAPH_SHAPES` shapes kept, the least recently used gone, a graph
-    for each shape called twice, and every call equal to the eager
-    program.  A state of another shape is refused."""
+    most `graphs.size` (8) shapes kept, the least recently used gone, a
+    graph for each shape called twice, and every call equal to the eager
+    program.  A state of another shape is refused; a buffer of another
+    channel count, a 1-d one and an empty one run the eager program, which
+    refuses them, and leave the cache as it was."""
     _need_cuda()
     proc = tstream.load_compiled_processor(shipped_dirs[64], device="cuda")
     rng = np.random.default_rng(3)
@@ -120,20 +121,24 @@ def test_replay_shape_cache_is_bounded(shipped_dirs):
         y_rep, s_rep = proc.process_np(s_rep, x[:, i:i + n], **KNOBS)
         y_eager, s_eager = eager(proc, s_eager, x[:, i:i + n], **KNOBS)
         assert np.array_equal(y_rep, y_eager) and same_state(s_rep, s_eager)
-        assert len(proc._graphs) <= tstream.GRAPH_SHAPES
+        assert len(proc.graphs.keys()) <= proc.graphs.size == 8
         i += n
-    assert list(proc._graphs) == [(2, n) for n in range(65, 72)] + [(2, 60)]
-    assert all(e.graph is not None for e in proc._graphs.values())
+    kept = [(2, n) for n in range(65, 72)] + [(2, 60)]
+    assert proc.graphs.keys() == proc.graphs.captured() == kept
     with pytest.raises(ValueError, match="expected h and c"):
         proc.process_np({k: v[:1] if v.ndim else v for k, v in s_rep.items()}, x[:, :60], **KNOBS)
+    for bad in (x[:1, :60], x[0, :60], x[:, :0]):
+        with pytest.raises(Exception):
+            proc.process_np(s_rep, bad, **KNOBS)
+    assert proc.graphs.keys() == kept
 
 
 @pytest.mark.cuda
 def test_replay_spans_count_captures_and_replays(shipped_dirs):
     """Under the profiler: a shape's first call eager, `processor.capture`
-    at its second, `processor.replay` at every later; K3's Python launch
-    counter ticks in an eager call and in a capture (its eager run and the
-    captured call), not in a replay."""
+    at its second, `processor.replay` at it and at every later; K3's Python
+    launch counter ticks in an eager call and in a capture (the captured
+    call), not in a replay."""
     _need_cuda()
     proc = tstream.load_compiled_processor(shipped_dirs[160], device="cuda")
     x = audio(2, total=5 * (128 + 64 + 130))
@@ -146,5 +151,5 @@ def test_replay_spans_count_captures_and_replays(shipped_dirs):
             i += n
     names = ("processor.call", "processor.capture", "processor.replay", "processor.run")
     assert span_counts(names) == [15, 3, 12, 15]
-    assert lstm_kernels.LAUNCHES["lstm_forward"] == 3 + 2 * 3
+    assert lstm_kernels.LAUNCHES["lstm_forward"] == 3 + 3
     spans.clear()

@@ -95,11 +95,11 @@ def test_static_chunks_equal_the_eager_loop(conditioning):
     eager, static = make_task(conditioning), make_task(conditioning, static=True)
     m_eager, m_static = run(eager, bs), run(static, bs)
     assert_same(eager, static, m_eager, m_static)
-    assert not eager._graphs
-    ((key, g),) = static._graphs.items()
+    assert eager.graphs.keys() == []
+    (key,) = static.graphs.keys()
     n = n_chunks(static, bs[0])
-    assert key == (B, (1, 1, 1), n, CHUNK) and g.graph is None
-    assert int(g.index) == n  # advanced once an update, reset once a step
+    assert key == (B, (1, 1, 1), n, CHUNK) and static.graphs.captured() == []
+    assert int(static.graphs.entry(key, None).buffers.index) == n  # advanced once an update, reset once a step
 
 
 def test_static_chunks_with_a_scheduled_lr_tensor():

@@ -4,7 +4,8 @@ optimizer's state) with the same capturable optimizer, at H 64 and H 160 at
 batch 32 over full 2 s clips; a cosine schedule gives the eager lr at every
 update; a short batch captures a second shape; a step pre-hook on the
 optimizer sees the first update's real gradients; a saved state resumes in
-either optimizer form.  The ground-truth LFO conditions the steps (no
+either optimizer form; the graph cache makes its side stream on its own
+card and captures there, whichever card is current.  The ground-truth LFO conditions the steps (no
 extractor, so no cuDNN choice enters the comparison).  This file imports
 torch, numpy and the port only, so it runs on a machine without JAX:
 
@@ -28,6 +29,7 @@ from mod_extraction_tpu_torch.ops import lstm_kernels
 from mod_extraction_tpu_torch.train.lfo_task import optimizer_form
 from mod_extraction_tpu_torch.train.render import RenderConfig
 from mod_extraction_tpu_torch.train.tbptt_task import TBPTTEffectModelingTask
+from mod_extraction_tpu_torch.utils.graphs import GraphCache
 
 SR, N, B = 44100.0, 88200, 32
 MODELS = {  # hidden size -> (weights, config, effect, delay line)
@@ -91,8 +93,8 @@ def test_replay_matches_eager_on_card(hid):
     eager, replayed = task(hid, False), task(hid, True)
     m_eager, m_replayed = run(eager, bs), run(replayed, bs)
     assert_same(eager, replayed, m_eager, m_replayed)
-    assert len(replayed._graphs) == 1 and not eager._graphs
-    assert all(g.graph is not None for g in replayed._graphs.values())
+    assert len(replayed.graphs.keys()) == 1 and replayed.graphs.captured() == replayed.graphs.keys()
+    assert eager.graphs.keys() == []
 
 
 @pytest.mark.cuda
@@ -143,7 +145,7 @@ def test_short_batch_captures_a_second_shape():
     m_replayed = run(replayed, bs)
     counts = dict(lstm_kernels.LAUNCHES)
     assert_same(eager, replayed, m_eager, m_replayed)
-    assert sorted(k[0] for k in replayed._graphs) == [20, 32]
+    assert sorted(k[0] for k in replayed.graphs.captured()) == [20, 32]
     assert counts["lstm_train_forward"] == counts["lstm_backward"] == 4  # an eager update and a capture a shape
     assert counts["lstm_forward"] == len(bs)  # the warm-ups stay eager
 
@@ -198,3 +200,30 @@ def test_resume_from_either_optimizer_form(saved):
     assert all(s["step"].device.type == "cuda" for s in resumed.optimizer.state.values())
     m_resumed = run(resumed, bs[1:])
     assert_same(whole, resumed, m_whole[1:], m_resumed)
+
+
+@pytest.mark.cuda
+def test_cache_captures_on_its_own_cards_stream():
+    """A cache on the last card, used while card 0 is current (another card
+    where there are several; the task sets no device itself), runs its first
+    use on a side stream of its card and captures its second there: the
+    body, doubling a tensor on that card in place, has run four times after
+    an eager use, a capture and replay, and two replays."""
+    _need_cuda()
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    cache, seen = GraphCache(2, dev, "t.capture"), []
+    x = torch.ones(4, device=dev)
+
+    def body():
+        seen.append((torch.cuda.current_stream(dev), torch.cuda.is_current_stream_capturing()))
+        return x.mul_(2)
+
+    e = cache.entry("k", lambda: None)
+    with torch.cuda.device(0):
+        for _ in range(4):
+            cache.run(e, body)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(x.cpu(), torch.full((4,), 16.0))
+    (eager_stream, eager_capturing), (capture_stream, capturing) = seen
+    assert eager_stream == capture_stream != torch.cuda.default_stream(dev)
+    assert eager_stream.device == dev and not eager_capturing and capturing
