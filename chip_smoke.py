@@ -10,16 +10,21 @@ points at full width:
 * stage 1, the extractor step: the paper Spectral2DCNN (6x64 channels, 256
   mels, 2 s clips at 44.1 kHz, bf16 convs) holding the shipped r7 weights, a
   `val_step` and a few AdamW `train_step`s on interwoven (flanger + chorus +
-  phaser) synthetic batches of 32 (kernels K1, K2);
+  phaser) synthetic batches of 32 (kernels K1, K2, and K6, which takes the
+  five 64-channel layers' weight gradients on the default path: five
+  launches a train step, none a `val_step`);
 * K7, the trunk's block between two convs (`ops/trunk_kernels.py`): held
   against its plain version (the eager chain) at the extractor's six block
   shapes, timed forward and forward + backward at batch 99 beside its byte
   bound and the eager chain; a stage-1 step counts six K7 launches each way;
-* the same step in its hand-written weight-gradient configuration,
-  `Spectral2DCNN(wgrad_impl="pallas")`: the five 64-channel trunk layers take
-  their weight gradient from the CUDA kernel K6 (kernels K1, K2, K6), held
-  against the default configuration from the same weights, batch and
-  SpecAugment draws, and timed beside the other conv configurations;
+* K6 alone at the trunk's shapes, reading the cotangent in the time-phase
+  form the default route gives it, then the same step in its explicit
+  weight-gradient configuration, `Spectral2DCNN(wgrad_impl="pallas")`: the
+  five 64-channel trunk layers take their weight gradient from K6 through
+  `make_conv2d_custom` (kernels K1, K2, K6); a backward of it and one of the
+  default configuration are held against the library's route (the library's
+  weight gradients) from the same weights, batch and SpecAugment draws, and
+  the step is timed beside the other conv configurations;
 * stage 2, TBPTT effect-model training as configured by
   `configs/train_em_sim_flanger_r7.yml`: the shipped LSTM-64 conditioned on
   the frozen r7 extractor (bf16), flanger batches of 32, a 1024-sample
@@ -208,6 +213,9 @@ WGRAD_PLAIN_REL, WGRAD_F32_REL = 1e-3, 2e-2
 # (mel bins entering the layer, time dilation) of the 64-channel trunk layers
 # of the paper config: 256 mels halved by each layer's pool, 345 frames
 WGRAD_LAYERS = ((128, 1), (64, 2), (32, 4), (16, 8), (8, 16))
+# K6 launches a backward of the bf16 extractor: the trunk's default conv on
+# the card takes the 64-channel layers' weight gradients from K6
+K6_A_BACKWARD = len(WGRAD_LAYERS)
 N_FRAMES, TRUNK_CH, KF, KT = N_SAMPLES // 256 + 1, 64, 5, 13
 N_WGRAD_STEPS = 3  # timed, after one warm-up step
 # serving: the streaming processor (K3) on two shipped effect models, the
@@ -520,21 +528,24 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_o
 # ---------------------------------------------------------------------------
 
 
-def run_stage1(fxk, rng) -> list:
+def run_stage1(fxk, rng) -> tuple:
     """Stage 1's checks and main path.  The plain K1 / K2 loops at (32,
     88200) run in CPU processes beside the card's work (the kernels' rows
-    carry their CPU ms as `plain_ms`, `plain_device` "cpu")."""
+    carry their CPU ms as `plain_ms`, `plain_device` "cpu").  Returns (K1's
+    and K2's rows, K6's launches in the train steps as its counter read
+    them)."""
     with tempfile.TemporaryDirectory() as tmp:
         return _run_stage1(fxk, rng, Path(tmp))
 
 
-def _run_stage1(fxk, rng, tmp: Path) -> list:
+def _run_stage1(fxk, rng, tmp: Path) -> tuple:
     from mod_extraction_tpu_torch.data.synthetic import (
         batch_to_torch,
         flanger_max_delay_samples,
         make_interwoven_batch,
     )
     from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+    from mod_extraction_tpu_torch.ops import conv_kernels as ck
     from mod_extraction_tpu_torch.ops.fx import phaser_coefficients
     from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
     from mod_extraction_tpu_torch.train.render import RenderConfig, phaser_params
@@ -571,10 +582,13 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
 
     fxk.reset_launch_counts()
     tk.reset_launch_counts()
+    ck.reset_launch_counts()
     val = {k: v.item() for k, v in task.val_step(val_batch).items()}
     print(f"[val_step r7 bf16 b={BATCH}] " + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items())))
     if tk.LAUNCHES != {"trunk_block_fwd": K7_A_PASS, "trunk_block_bwd": 0}:
         fail(f"stage 1 val_step: K7 launched {tk.LAUNCHES}, expected {K7_A_PASS} forward")
+    if ck.LAUNCHES["conv_wgrad"] != 0:
+        fail(f"stage 1 val_step: K6 launched {ck.LAUNCHES}, expected none (no gradient)")
     tk.reset_launch_counts()
     metrics = task.train_step(train_batches[0])  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
@@ -589,8 +603,11 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
     want = N_TRAIN_STEPS + 1
     if tk.LAUNCHES != {"trunk_block_fwd": K7_A_PASS * want, "trunk_block_bwd": K7_A_PASS * want}:
         fail(f"stage 1: {want} train steps launched K7 {tk.LAUNCHES}, expected {K7_A_PASS} each way a step")
+    k6_launches = ck.LAUNCHES["conv_wgrad"]
+    if k6_launches != K6_A_BACKWARD * want:
+        fail(f"stage 1: {want} train steps launched K6 {ck.LAUNCHES}, expected {K6_A_BACKWARD} a step")
     print(f"[stage 1 K7] {K7_A_PASS} forward + {K7_A_PASS} backward launches a train step, "
-          f"{K7_A_PASS} forward a val_step")
+          f"{K7_A_PASS} forward a val_step; K6 {K6_A_BACKWARD} a train step, none a val_step")
     print(f"[stage 1 main path] launches={launches}")
 
     finite = all(math.isfinite(v) for v in val.values()) and all(
@@ -657,7 +674,7 @@ def _run_stage1(fxk, rng, tmp: Path) -> list:
         43 * n_lanes * t_len, None,
     )
     k2_row.update(chunk=fxk.PHASER_CHUNK, max_p=max_p, z_err=z_err, plain_device="cpu")
-    return [k1_row, k2_row]
+    return [k1_row, k2_row], k6_launches
 
 
 # ---------------------------------------------------------------------------
@@ -833,12 +850,17 @@ def library_wgrad(x, g, dil):
     )[1]
 
 
-def check_wgrad(ck, x, g, dil, label):
+def check_wgrad(ck, x, g, dil, label, g_phases=None):
     """K6 against its plain version and the float32 reference, and two
     launches against each other; returns (error vs plain relative to the
-    largest |dW|, the plain version's ms)."""
-    got = ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil)
-    again = ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil)
+    largest |dW|, the plain version's ms).  With `g_phases`, K6 reads the
+    cotangent in that time-phase form (`ops/conv.py::time_phases(g, dil)`,
+    as the default route gives it) and the plain version and the reference
+    read g unphased."""
+    if g_phases is None:
+        got, again = (ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil) for _ in range(2))
+    else:
+        got, again = (ck.conv2d_wgrad_tapcat(x, g_phases, KF, KT, dil, dy_phases=dil) for _ in range(2))
     ref_out = []
     plain_ms = cuda_ms(lambda: ref_out.append(ck.conv2d_wgrad_plain(x, g, KF, KT, dil)), 1)
     ref = ck.conv2d_wgrad_reference(x, g, KF, KT, dil)
@@ -862,7 +884,9 @@ def run_stage1_kernel_wgrad(fxk, ck, rng) -> list:
         flanger_max_delay_samples,
         make_interwoven_batch,
     )
+    from mod_extraction_tpu_torch.models import spectral_2dcnn
     from mod_extraction_tpu_torch.models.convert import load_spectral_2dcnn
+    from mod_extraction_tpu_torch.ops.conv import time_phases
     from mod_extraction_tpu_torch.train.lfo_task import LFOExtractionTask
     from mod_extraction_tpu_torch.train.render import RenderConfig
 
@@ -875,20 +899,24 @@ def run_stage1_kernel_wgrad(fxk, ck, rng) -> list:
     check_wgrad(ck, rand(2, 16, 6, 57), rand(2, 8, 6, 57), 4, "small B=2 ci=16 co=8 F=6 T=57 dil=4")
     check_wgrad(ck, rand(2, 64, 6, 352), rand(2, 64, 6, 352), 16, "B=2 F=6 T=352 dil=16 (aligned T, shifts past a tile)")
     check_wgrad(ck, rand(1, 64, 1, N_FRAMES), rand(1, 64, 1, N_FRAMES), 1, f"B=1 F=1 T={N_FRAMES} dil=1")
+    # at the path's shapes K6 reads the cotangent in the time-phase form the
+    # default route gives it (the three above hold the unphased form that
+    # `make_conv2d_custom`'s "pallas" gives)
     layers = []
     for f, dil in WGRAD_LAYERS:
         x, g = rand(BATCH, TRUNK_CH, f, N_FRAMES), rand(BATCH, TRUNK_CH, f, N_FRAMES)
-        label = f"B={BATCH} F={f} T={N_FRAMES} dil={dil}"
-        err, plain_ms = check_wgrad(ck, x, g, dil, label)
+        g_ph = time_phases(g, dil).contiguous()
+        label = f"B={BATCH} F={f} T={N_FRAMES} dil={dil}, dy over {dil} time phases"
+        err, plain_ms = check_wgrad(ck, x, g, dil, label, g_ph)
         n_ops, n_bytes = wgrad_ops_bytes(BATCH, f, N_FRAMES, TRUNK_CH, TRUNK_CH)
-        ms = cuda_ms_median(lambda: ck.conv2d_wgrad_tapcat(x, g, KF, KT, dil))
+        ms = cuda_ms_median(lambda: ck.conv2d_wgrad_tapcat(x, g_ph, KF, KT, dil, dy_phases=dil))
         library_ms = cuda_ms_median(library_wgrad(x, g, dil))
         bound_ms = max(n_ops / BF16_OPS_S, n_bytes / HBM_BYTES_S) * 1e3
         print(f"[K6 {label}] ms={ms:.3f} bound_ms={bound_ms:.3f} (operations) bound/ms={bound_ms / ms:.3f} "
               f"tflops={n_ops / ms / 1e9:.1f} library_ms={library_ms:.3f} plain_ms={plain_ms:.1f}")
         layers.append(dict(bins=f, dil=dil, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, err=err, n_ops=n_ops, n_bytes=n_bytes))
-        del x, g
+        del x, g, g_ph
     torch.cuda.empty_cache()
 
     # -- the main path, counted per step
@@ -933,34 +961,45 @@ def run_stage1_kernel_wgrad(fxk, ck, rng) -> list:
     print(f"[stage 1 wgrad=pallas main path] launches={total} mean_step_ms={np.mean(step_s) * 1e3:.3f} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
 
-    # -- one backward in this configuration and one in the default, from the
+    # -- one backward in each of K6's two configurations (the default route
+    #    and "pallas") and one on the library's route, whose conv weight
+    #    gradients are the library's (the default conv with `wgrad_supported`
+    #    false, as before K6 took them: the same forward call), all from the
     #    same weights, batch and SpecAugment draws
     draws = torch.tensor([0.31, 0.62, 0.47, 0.15])
     grads = {}
-    for name, opts in (("pallas", dict(wgrad_impl="pallas")), ("default", {})):
+    for name, opts in (("default", {}), ("pallas", dict(wgrad_impl="pallas")), ("library", {})):
         t = make_task(**opts)
         t.model.train()
-        loss, _ = t._loss(batches[0], None, draws)
-        loss.backward()
+        covered = spectral_2dcnn.wgrad_supported
+        if name == "library":
+            spectral_2dcnn.wgrad_supported = lambda *a: False
+        try:
+            loss, _ = t._loss(batches[0], None, draws)
+            loss.backward()
+        finally:
+            spectral_2dcnn.wgrad_supported = covered
         grads[name] = (loss.item(), {k: p.grad.detach().clone() for k, p in t.model.named_parameters()})
         del t
-    (loss_k, g_k), (loss_d, g_d) = grads["pallas"], grads["default"]
-    worst = max(
-        (rel_err(g_k[k], g_d[k]), k) for k in g_d if k.startswith("convs.") and k.endswith(".weight")
-    )
-    others = max(rel_err(g_k[k], g_d[k]) for k in g_d if not k.endswith(".weight") or k.startswith("out."))
-    print(f"[wgrad=pallas vs default backward] loss {loss_k:.8f}/{loss_d:.8f} conv weight gradients "
-          f"max_rel={worst[0]:.3e} ({worst[1]}; limit {WGRAD_F32_REL}) other leaves max_rel={others:.3e}")
-    if loss_k != loss_d:
-        fail(f"the two configurations share their forward, yet the losses differ: {loss_k} vs {loss_d}")
-    if not worst[0] <= WGRAD_F32_REL:
-        fail(f"conv weight gradient {worst[1]} of the kernel configuration differs by {worst[0]}")
-    if not others <= WGRAD_F32_REL:
-        fail(f"a gradient that K6 does not compute differs between the configurations: {others}")
+    loss_d, g_d = grads["library"]
+    for name in ("default", "pallas"):
+        loss_k, g_k = grads[name]
+        worst = max(
+            (rel_err(g_k[k], g_d[k]), k) for k in g_d if k.startswith("convs.") and k.endswith(".weight")
+        )
+        others = max(rel_err(g_k[k], g_d[k]) for k in g_d if not k.endswith(".weight") or k.startswith("out."))
+        print(f"[wgrad={name} vs library wgrad backward] loss {loss_k:.8f}/{loss_d:.8f} conv weight gradients "
+              f"max_rel={worst[0]:.3e} ({worst[1]}; limit {WGRAD_F32_REL}) other leaves max_rel={others:.3e}")
+        if loss_k != loss_d:
+            fail(f"the two configurations share their forward, yet the losses differ: {loss_k} vs {loss_d}")
+        if not worst[0] <= WGRAD_F32_REL:
+            fail(f"conv weight gradient {worst[1]} of the kernel configuration differs by {worst[0]}")
+        if not others <= WGRAD_F32_REL:
+            fail(f"a gradient that K6 does not compute differs between the configurations: {others}")
 
     # -- the train step in each conv configuration, taking turns
     configs = {
-        "wgrad=xla (default)": {}, "wgrad=pallas": dict(wgrad_impl="pallas"),
+        "default (K6 wgrad)": {}, "wgrad=pallas": dict(wgrad_impl="pallas"),
         "wgrad=s2b": dict(wgrad_impl="s2b"), "conv=pair": dict(conv_impl="pair"),
     }
     tasks = {name: make_task(**opts) for name, opts in configs.items()}
@@ -3289,7 +3328,9 @@ def ddp_world1(rows: list, summary: dict) -> None:
         print(f"[ddp (a)] one NCCL rank and no group in one process: {time.perf_counter() - t0:.1f} s")
     n_batches = FIT_TRAIN_BATCHES + FIT_VAL_BATCHES
     eager = FIT_TRAIN_BATCHES * 83  # under a process group the chunk updates run the eager loop
-    want_launches = {("fit stage 1", tag): dict(flanger=n_batches, phaser=n_batches) for tag in ("group", "none")}
+    want_launches = {("fit stage 1", tag): dict(flanger=n_batches, phaser=n_batches,
+                                                conv_wgrad=K6_A_BACKWARD * FIT_TRAIN_BATCHES)
+                     for tag in ("group", "none")}
     want_launches.update({("fit stage 2", tag): dict(lstm_forward=n_batches, lstm_train_forward=n, lstm_backward=n)
                           for tag, n in (("group", eager), ("none", 2))})
     for label in fit_cfgs:
@@ -3484,6 +3525,11 @@ def ddp_two_ranks(rows: list, summary: dict) -> None:
                 if not got["launches"]["flanger"] == got["launches"]["phaser"] == held_shares:
                     problems.append(f"ddp (b) {name} rank {r}: K1 / K2 launched {got['launches']}, expected "
                                     f"{held_shares} each, one a share")
+                # K6 takes the bf16 trunk's weight gradients, a backward a share
+                k6 = 0 if name.endswith("f32") else K6_A_BACKWARD * held_shares
+                if got["launches"]["conv_wgrad"] != k6:
+                    problems.append(f"ddp (b) {name} rank {r}: K6 launched {got['launches']['conv_wgrad']}, "
+                                    f"expected {k6}, {K6_A_BACKWARD} a share of a bf16 trunk")
             if not all(math.isfinite(v) for v in got["metrics"].values()):
                 problems.append(f"ddp (b) {name} rank {r}: non-finite metrics {got['metrics']}")
             add_ddp_launches(rows, got["launches"], f"(b) {name}", h160=name == "H 160")
@@ -4178,6 +4224,7 @@ def run_prep(rows: list) -> dict:
             steps = [r["step"] for r in records if r["phase"] == "train_step"]
             per_epoch = dict(none, flanger=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES,
                              phaser=FIT_TRAIN_BATCHES + FIT_VAL_BATCHES,
+                             conv_wgrad=K6_A_BACKWARD * FIT_TRAIN_BATCHES,
                              trunk_block_fwd=K7_A_PASS * (FIT_TRAIN_BATCHES + FIT_VAL_BATCHES),
                              trunk_block_bwd=K7_A_PASS * FIT_TRAIN_BATCHES)
             counts = read_launch_log(str(log))
@@ -4319,7 +4366,7 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     cpu_sides = {fn: start_cpu_side(fn, tmp.name) for fn in ("stage2_cpu_reference", "h160_cpu_reference")}
     atexit.register(lambda: [(p.kill(), p.wait()) for p, _, _ in cpu_sides.values() if p.poll() is None])
-    rows = timed("stage 1", run_stage1, fxk, rng)
+    rows, k6_stage1 = timed("stage 1", run_stage1, fxk, rng)
     k7 = timed("trunk block", run_trunk_block)
     k7_row = kernel_row(
         "trunk_block", "mod_extraction_tpu_torch/csrc/trunk_block.cu",
@@ -4330,6 +4377,9 @@ def main() -> int:
     k7_row.update(err_is="largest deviation over its tolerance (<= 1 holds)", fwd_ms=k7["fwd_ms"],
                   bound_fwd_ms=k7["bound_fwd_ms"], blocks=k7["blocks"], batch=K7_BATCH)
     rows += timed("stage 1 (wgrad=pallas)", run_stage1_kernel_wgrad, fxk, ck, rng)
+    # K6's row: the default path's train steps in the stage-1 phase too
+    rows[-1]["launches"] += k6_stage1
+    rows[-1]["stage1_default_launches"] = k6_stage1
     h64 = {}
     rows += timed("stage 2", run_stage2, fxk, lk, rng, rows[0], h64, cpu_sides["stage2_cpu_reference"])
     h160_rows, k1_h160 = timed("stage 2 H 160", run_stage2_h160, fxk, lk, rng, h64,
@@ -4353,7 +4403,8 @@ def main() -> int:
     fits = {
         "fit stage 1": timed("fit stage 1", run_fit,
             "fit stage 1", FIT_LFO_CONFIG, counters,
-            lambda task: dict(none, flanger=n_batches, phaser=n_batches), bench_lines[0], rows),
+            lambda task: dict(none, flanger=n_batches, phaser=n_batches,
+                              conv_wgrad=K6_A_BACKWARD * FIT_TRAIN_BATCHES), bench_lines[0], rows),
         "fit stage 2": timed("fit stage 2", run_fit,
             "fit stage 2", FIT_TBPTT_CONFIG, counters,
             lambda task: dict(none, lstm_forward=n_batches, **tbptt_python_launches(task, FIT_TRAIN_BATCHES)),

@@ -52,7 +52,9 @@
 //
 // The channels-last copies are made by the conv_wgrad_channels_last
 // kernels below (tile transposes through shared memory); they are part of
-// K6's time on the card.
+// K6's time on the card.  The copy also reads an operand over time phases,
+// as the trunk's dilated convs leave their output's cotangent, and puts
+// the frames back in order as it writes.
 //
 // The TPU kernel sums into one resident output block across its sequential
 // grid; here the contraction is split over blocks (each takes every
@@ -258,43 +260,49 @@ conv_wgrad_partial_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// K6's operand copy: src (B, C, F, T), float32 or bf16, -> dst (B, F, T, C)
-// bf16 (round to nearest even, as torch's cast), for any F T.  A block moves a 64 c x 64
-// t tile of one (b, f) through shared memory: reads along t, writes two
-// channels a thread, 128 contiguous bytes a warp.  It does none of the
-// product's arithmetic.
+// K6's operand copy: src (B P, C, F, ceil(T / P)), float32 or bf16, the
+// tensor over P time phases as ops/conv.py::time_phases lays them out (P =
+// 1: (B, C, F, T)), -> dst (B, F, T, C) bf16 (round to nearest even, as
+// torch's cast), frame t = q P + r from phase r's position q; the phases'
+// padded tail (t >= T) is dropped.  A block moves a 64 c x 64 q tile of one
+// (b P + r, f) through shared memory: reads along q, writes two channels a
+// thread, 128 contiguous bytes a warp.  It does none of the product's
+// arithmetic.
 template <typename T>
 __global__ void __launch_bounds__(256)
 conv_wgrad_channels_last_kernel(const T* __restrict__ src, uint32_t* __restrict__ dst, int c_n,
-                                int f_n, int t_n) {
+                                int f_n, int t_n, int phases) {
   __shared__ unsigned short tile[64][66];
-  const int t0 = blockIdx.x * 64;
+  const int q_n = (t_n + phases - 1) / phases;  // positions a phase
+  const int pf = blockIdx.x;                    // (b P + r) F + f
   const int c0 = blockIdx.y * 64;
-  const int bf = blockIdx.z;  // b * F + f
-  const int b = bf / f_n, f = bf % f_n;
+  const int q0 = blockIdx.z * 64;
+  const int f = pf % f_n, bp = pf / f_n;
+  const int b = bp / phases, r = bp % phases;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int idx = tid + 256 * i;
-    const int c = idx >> 6, t = idx & 63;
+    const int c = idx >> 6, q = idx & 63;
     float v = 0.0f;
-    if (c0 + c < c_n && t0 + t < t_n) {
-      const long long at = ((static_cast<long long>(b) * c_n + c0 + c) * f_n + f) * t_n + t0 + t;
+    if (c0 + c < c_n && q0 + q < q_n) {
+      const long long at = ((static_cast<long long>(bp) * c_n + c0 + c) * f_n + f) * q_n + q0 + q;
       if constexpr (sizeof(T) == 4)
         v = src[at];
       else
         v = __uint_as_float(static_cast<uint32_t>(src[at]) << 16);
     }
-    tile[c][t] = static_cast<unsigned short>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+    tile[c][q] = static_cast<unsigned short>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
   }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int idx = tid + 256 * i;
-    const int t = idx >> 5, cp = idx & 31;
-    if (t0 + t < t_n && c0 + 2 * cp < c_n)  // c_n is even
-      dst[((static_cast<long long>(bf) * t_n + t0 + t) * c_n + c0 + 2 * cp) / 2] =
-          static_cast<uint32_t>(tile[2 * cp][t]) | (static_cast<uint32_t>(tile[2 * cp + 1][t]) << 16);
+    const int q = idx >> 5, cp = idx & 31;
+    const int t = (q0 + q) * phases + r;
+    if (q0 + q < q_n && t < t_n && c0 + 2 * cp < c_n)  // c_n is even
+      dst[(((static_cast<long long>(b) * f_n + f) * t_n + t) * c_n + c0 + 2 * cp) / 2] =
+          static_cast<uint32_t>(tile[2 * cp][q]) | (static_cast<uint32_t>(tile[2 * cp + 1][q]) << 16);
   }
 }
 
@@ -381,25 +389,27 @@ int conv_wgrad_chan_tile() { return kChanTile; }
 // blocks along the taps).
 int conv_wgrad_taps_per_block(int kf) { return kf <= 5 ? 2 : 1; }
 
-// K6's operand copy: src (B, C, F, T), contiguous, float32 when is_f32 else
-// bf16 -> dst (B, F, T, C) bf16.  C a multiple of 8.
+// K6's operand copy: src (B P, C, F, ceil(T / P)), contiguous, over P time
+// phases (P = 1: (B, C, F, T)), float32 when is_f32 else bf16 -> dst (B, F,
+// T, C) bf16.  C a multiple of 8.
 int conv_wgrad_channels_last(const void* src, void* dst, int batch, int c_n, int f_n, int t_n,
-                             int is_f32, void* stream) {
-  if (c_n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((t_n + 63) / 64, (c_n + 63) / 64, batch * f_n);
+                             int phases, int is_f32, void* stream) {
+  if (c_n % 8 != 0 || phases < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int q_n = (t_n + phases - 1) / phases;
+  const dim3 grid(batch * phases * f_n, (c_n + 63) / 64, (q_n + 63) / 64);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* d = static_cast<uint32_t*>(dst);
   const int ft_n = f_n * t_n;
-  if (!is_f32 && ft_n % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+  if (!is_f32 && phases == 1 && ft_n % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
     const dim3 vgrid((ft_n + 127) / 128, (c_n + 63) / 64, batch);
     conv_wgrad_channels_last_vec_kernel<<<vgrid, 256, 0, s>>>(static_cast<const uint4*>(src), d,
                                                               c_n, ft_n);
   } else if (is_f32)
     conv_wgrad_channels_last_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(src), d,
-                                                               c_n, f_n, t_n);
+                                                               c_n, f_n, t_n, phases);
   else
     conv_wgrad_channels_last_kernel<unsigned short><<<grid, 256, 0, s>>>(
-        static_cast<const unsigned short*>(src), d, c_n, f_n, t_n);
+        static_cast<const unsigned short*>(src), d, c_n, f_n, t_n, phases);
   return static_cast<int>(cudaGetLastError());
 }
 

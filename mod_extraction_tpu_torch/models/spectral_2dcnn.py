@@ -17,10 +17,16 @@ gradients arrive in float32.
 
 The compute-path options keep the JAX package's names and values, so a
 model config written for it loads unchanged: `conv_impl` "lax" /
-"freq_folded" / "pair", `wgrad_impl` "xla" (the library's weight gradient) /
-"pallas" (the hand-written CUDA kernel, `ops/conv_kernels.py`) / "s2b",
+"freq_folded" / "pair", `wgrad_impl` "xla" (the default route: on the card
+K6 where it covers the layer, else the library's weight gradient) /
+"pallas" (K6, the hand-written CUDA kernel of `ops/conv_kernels.py`, through
+the explicit backward of `make_conv2d_custom`) / "s2b",
 `grad_barrier` False / True / "all" / "l0", `stft_impl`, `act_io_dtype`.
-None of them changes a parameter's name or shape.
+None of them changes a parameter's name or shape.  So "xla" does not mean
+the library's weight gradient on the card's 64-channel bf16 layers: there
+only `grad_barrier` (`make_conv2d_custom`'s "xla") still reaches it, and
+"pallas" gives the default's weight gradient by a slower route (it runs the
+forward again for the data gradient).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch import nn
 from mod_extraction_tpu_torch.models.common import PReLU, layer_norm_no_affine, lecun_normal_
 from mod_extraction_tpu_torch.ops.conv import conv2d_freq_folded, conv2d_same_phases, foldable
 from mod_extraction_tpu_torch.ops.conv_kernels import (
+    conv2d_same_phases_kernel_wgrad,
     make_conv2d_custom,
     pair_supported,
     wgrad_supported,
@@ -64,7 +71,12 @@ def trunk_conv(
     own after the product; that pass moves into the block after the conv
     (`ops/trunk_kernels.py`), which adds it as the library did.  The CPU's
     library adds it inside its sums, so there the conv keeps it, and a CPU
-    run is what it was.
+    run is what it was.  On the card, where the conv runs in bf16 (K6 sums
+    bf16 products; a float32 trunk keeps the library's float32 weight
+    gradient) and K6 covers the layer (`wgrad_supported`: the 64-channel
+    layers), the weight gradient is K6's (`conv2d_same_phases_kernel_wgrad`:
+    the same forward and data gradient, bit for bit); a forward that records
+    no gradient runs that same library call alone and launches no K6.
 
     Without "pair" the data gradient is autograd of the forward conv, the
     library's own backward-data pass.  (The JAX module names "lax" there,
@@ -88,6 +100,8 @@ def trunk_conv(
         )
         return conv(x, w, b.to(x.dtype)), 1, None
     if x.is_cuda:
+        if x.dtype == torch.bfloat16 and wgrad_supported(w.shape, bin_dil, ci):
+            return (*conv2d_same_phases_kernel_wgrad(x, w, temp_dil), b)
         return (*conv2d_same_phases(x, w, None, bin_dil, temp_dil), b)
     return (*conv2d_same_phases(x, w, b.to(x.dtype), bin_dil, temp_dil), None)
 

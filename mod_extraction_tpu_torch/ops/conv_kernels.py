@@ -1,7 +1,8 @@
 """K6, the trunk conv's weight gradient: the wrapper around the hand-written
 CUDA kernel in `csrc/conv_wgrad.cu`, its plain PyTorch version, a float32
-reference, the launch counter, and the conv with an explicitly chosen
-backward that calls them.
+reference, the launch counter, the trunk's default conv whose weight
+gradient it is (`conv2d_same_phases_kernel_wgrad`), and the conv with an
+explicitly chosen backward that calls them.
 
 Replaces `mod_extraction_tpu/ops/pallas_conv.py` (`conv2d_wgrad_tapcat` with
 `_wgrad_kernel`, `conv2d_wgrad_reference`, `make_conv2d_custom`,
@@ -25,13 +26,16 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from mod_extraction_tpu_torch.ops import cuda_build
 from mod_extraction_tpu_torch.ops.conv import (
     conv2d_pair_rows,
     conv2d_same,
     conv2d_same_backward,
+    conv2d_same_phases,
     conv2d_wgrad_s2b,
+    from_time_phases,
 )
 
 #: Kernel launches per wrapper since the last `reset_launch_counts()`.
@@ -65,7 +69,7 @@ def _load():
             const.restype = i
         lib.conv_wgrad_taps_per_block.argtypes = [i]
         lib.conv_wgrad_taps_per_block.restype = i
-        lib.conv_wgrad_channels_last.argtypes = [p, p] + [i] * 5 + [p]
+        lib.conv_wgrad_channels_last.argtypes = [p, p] + [i] * 6 + [p]
         lib.conv_wgrad_channels_last.restype = i
         _lib = lib
     return _lib
@@ -86,11 +90,13 @@ def wgrad_supported(w_shape, bin_dil: int, ci: int) -> bool:
     return bin_dil == 1 and kf % 2 == 1 and kt % 2 == 1 and ci % 8 == 0 and ci >= 8
 
 
-def _check_shapes(x: torch.Tensor, dy: torch.Tensor, kf: int, kt: int, dil: int) -> None:
+def _check_shapes(x: torch.Tensor, dy: torch.Tensor, kf: int, kt: int, dil: int, dy_phases: int = 1) -> None:
     if x.ndim != 4 or dy.ndim != 4:
         raise ValueError(f"expected x (B, Ci, F, T) and dy (B, Co, F, T), got {tuple(x.shape)}, {tuple(dy.shape)}")
-    if (x.shape[0], x.shape[2], x.shape[3]) != (dy.shape[0], dy.shape[2], dy.shape[3]):
-        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} differ in B, F or T")
+    b, _, f, t = x.shape
+    if dy_phases < 1 or (dy.shape[0], dy.shape[2], dy.shape[3]) != (b * dy_phases, f, -(-t // dy_phases)):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} over {dy_phases} time phases "
+                         f"differ in B, F or T")
     if kf % 2 != 1 or kt % 2 != 1 or dil < 1:
         raise ValueError(f"kernel ({kf}, {kt}) must be odd and dil >= 1, got dil={dil}")
 
@@ -140,21 +146,25 @@ def wgrad_splits(n_units: int, n_grid_other: int, sm_count: int) -> int:
     return max(1, min(n_units, (BLOCKS_PER_SM * sm_count) // n_grid_other))
 
 
-def channels_last_bf16(a: torch.Tensor) -> torch.Tensor:
+def channels_last_bf16(a: torch.Tensor, phases: int = 1, width: int | None = None) -> torch.Tensor:
     """(B, C, F, T) -> a contiguous bf16 copy laid out (B, F, T, C): K6's
     operand layout, in which TMA applies the time shift of a tap as a box
-    coordinate.  On the card a copy kernel of `csrc/conv_wgrad.cu` (float32
-    or bf16 in), elsewhere torch's copy."""
-    b, c, f, t = a.shape
+    coordinate.  With `phases` > 1, `a` is (B*phases, C, F, ceil(T/phases))
+    over time phases as `ops/conv.py::time_phases` lays them out, and
+    `width` is T: the copy puts the frames back in order and drops the
+    phases' padded tail.  On the card a copy kernel of
+    `csrc/conv_wgrad.cu` (float32 or bf16 in), elsewhere torch's copy."""
+    bp, c, f, q = a.shape
+    b, t = bp // phases, q if width is None else width
     out = torch.empty(b, f, t, c, dtype=torch.bfloat16, device=a.device)
     if a.device.type != "cuda":
-        return out.copy_(a.permute(0, 2, 3, 1))
+        return out.copy_((from_time_phases(a, phases, t) if phases > 1 else a).permute(0, 2, 3, 1))
     if a.dtype not in (torch.float32, torch.bfloat16):
         a = a.to(torch.float32)
     a = a.contiguous()
     with torch.cuda.device(a.device):  # the launch goes to the card of its tensors
         rc = _load().conv_wgrad_channels_last(
-            a.data_ptr(), out.data_ptr(), b, c, f, t, int(a.dtype == torch.float32),
+            a.data_ptr(), out.data_ptr(), b, c, f, t, phases, int(a.dtype == torch.float32),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if rc != 0:
@@ -162,17 +172,23 @@ def channels_last_bf16(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch.Tensor:
+def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1, dy_phases: int = 1) -> torch.Tensor:
     """Weight gradient of `conv2d_same(x, w, None, 1, dil)` with respect to
     its kernel: x (B, Ci, F, T) conv input, dy (B, Co, F, T) output
     cotangent -> (Co, Ci, kf, kt) float32, operands rounded to bf16 and
-    summed in float32.  K6 on CUDA tensors, the plain version on CPU
-    tensors."""
+    summed in float32.  With `dy_phases` > 1, dy comes over that many time
+    phases, (B*dy_phases, Co, F, ceil(T/dy_phases)), the form
+    `ops/conv.py::conv2d_same_phases` gives a dilated layer's output; K6's
+    channels-last copy reads it so.  K6 on CUDA tensors, the plain version
+    on CPU tensors."""
     if x.device.type == "cpu":
+        if dy_phases > 1:
+            _check_shapes(x, dy, kf, kt, dil, dy_phases)
+            dy = from_time_phases(dy, dy_phases, x.shape[3])
         return conv2d_wgrad_plain(x, dy, kf, kt, dil)
     if x.device.type != "cuda" or dy.device != x.device:
         raise RuntimeError(f"conv2d_wgrad_tapcat: expected CPU or CUDA tensors, got {x.device} and {dy.device}")
-    _check_shapes(x, dy, kf, kt, dil)
+    _check_shapes(x, dy, kf, kt, dil, dy_phases)
     bsz, ci, f, t = x.shape
     co = dy.shape[1]
     if ci % 8 or co % 8:
@@ -182,7 +198,7 @@ def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch
         raise ValueError(f"conv2d_wgrad_tapcat: kf={kf} exceeds the kernel's limit {lib.conv_wgrad_max_kf()}")
     # the one copy K6 makes: channels last, bf16
     xb = channels_last_bf16(x.detach())
-    gb = channels_last_bf16(dy.detach())
+    gb = channels_last_bf16(dy.detach(), dy_phases, t)
     tile_c = lib.conv_wgrad_chan_tile()
     n_units = bsz * -(-t // lib.conv_wgrad_time_tile())
     n_tap_blocks = -(-kt // lib.conv_wgrad_taps_per_block(kf))
@@ -202,6 +218,65 @@ def conv2d_wgrad_tapcat(x, dy, kf: int = 5, kt: int = 13, dil: int = 1) -> torch
         raise RuntimeError(f"conv_wgrad kernel launch failed: code {rc} (a cudaError; -1: no "
                            f"cuTensorMapEncodeTiled in libcuda; -1000 - CUresult: it refused)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the trunk's conv on the default path, with K6 as its weight gradient
+# ---------------------------------------------------------------------------
+
+
+class _PhasedConvKernelWgrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, dil):
+        # an odd kernel: the conv runs over d = dil time phases
+        y, _ = conv2d_same_phases(x, w, None, 1, dil)
+        # the conv input as it came, not its phased copy
+        ctx.save_for_backward(x, w)
+        ctx.dil = dil
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d = ctx.dil
+        kf, kt = w.shape[2], w.shape[3]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the library's data pass as autograd of the forward's conv calls
+            # it; the pass reads the input's shape and layout, not its values,
+            # so an empty tensor in the phased input's shape stands in for it
+            b, c, f, t = x.shape
+            x_shape = x if d == 1 else x.new_empty((b * d, c, f, -(-t // d)))
+            dx = torch.ops.aten.convolution_backward(
+                g, x_shape, w, None, [1, 1], [kf // 2, kt // 2], [1, 1], False, [0, 0], 1,
+                [True, False, False],
+            )[0]
+            if d > 1:
+                dx = from_time_phases(dx, d, t)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_wgrad_tapcat(x, g, kf, kt, d, dy_phases=d).to(w.dtype)
+        return dx, dw, None
+
+
+def conv2d_same_phases_kernel_wgrad(x: torch.Tensor, w: torch.Tensor, temp_dil: int) -> tuple:
+    """`ops/conv.py::conv2d_same_phases(x, w, None, 1, temp_dil)`, (y, d),
+    whose weight gradient is K6: the trunk's default bf16 conv on the card
+    wherever `wgrad_supported` holds.  A forward that records no gradient
+    runs the library call alone.
+
+    The forward is the same library call, the same bits.  The backward's
+    data gradient is the library's data pass on the phased operands, the
+    call autograd of the forward makes, bit for bit.  The weight gradient
+    is K6 over all T frames at dilation `temp_dil`, the cotangent read in
+    its phase form by K6's channels-last copy; it leaves in w's dtype,
+    rounded once.  The saved input is x itself, not its phased copy.
+    CPU tensors take K6's plain version."""
+    kf, kt = w.shape[2], w.shape[3]
+    if kf % 2 != 1 or kt % 2 != 1 or temp_dil < 1:
+        raise ValueError(f"conv2d_same_phases_kernel_wgrad: kernel ({kf}, {kt}) must be odd and the "
+                         f"dilation {temp_dil} >= 1")
+    return _PhasedConvKernelWgrad.apply(x, w, temp_dil), temp_dil
 
 
 # ---------------------------------------------------------------------------

@@ -218,3 +218,81 @@ def test_grad_barrier_gradients_bit_exact(rng, mode):
             )
         else:
             assert torch.equal(p0.grad, p1.grad), k
+
+
+# ---------------------------------------------------------------------------
+# the trunk's default conv on the card, with K6 as its weight gradient; on CPU
+# tensors K6's wrapper takes its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dil", [1, 2, 4, 8, 16])
+def test_kernel_wgrad_conv_on_cpu(dil):
+    """`conv2d_same_phases_kernel_wgrad` at each trunk dilation, 345 frames
+    (a multiple of no dilation but 1), the cotangent in the phase form with
+    zeros in the phases' padding (as K7's backward leaves it): the forward
+    and dx equal `conv2d_same_phases` and its autograd bit for bit; dW is
+    K6's plain version on the unphased operands, bit for bit in the weight's
+    dtype, and within 2e-2 of the largest |dW| of the float32 reference."""
+    from mod_extraction_tpu_torch.ops.conv import conv2d_same_phases, from_time_phases, time_phases
+
+    gen = torch.Generator().manual_seed(dil)
+    x = torch.randn(2, 8, 6, 345, generator=gen).to(torch.bfloat16)
+    w = (0.1 * torch.randn(16, 8, 5, 13, generator=gen)).to(torch.bfloat16)
+    g = torch.randn(2, 16, 6, 345, generator=gen).to(torch.bfloat16)
+    g_ph = time_phases(g, dil) if dil > 1 else g
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ya, da = conv2d_same_phases(xa, wa, None, 1, dil)
+    (dxa,) = torch.autograd.grad(ya, xa, g_ph)
+    xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yb, db = ck.conv2d_same_phases_kernel_wgrad(xb, wb, dil)
+    dxb, dwb = torch.autograd.grad(yb, (xb, wb), g_ph)
+    assert da == db == dil and yb.shape == (2 * dil, 16, 6, -(-345 // dil))
+    assert torch.equal(ya, yb)
+    assert torch.equal(dxa, dxb)
+    assert dwb.dtype == torch.bfloat16
+    g_u = from_time_phases(g_ph, dil, 345) if dil > 1 else g
+    assert torch.equal(g_u, g)
+    assert torch.equal(dwb, ck.conv2d_wgrad_plain(x, g, 5, 13, dil).to(torch.bfloat16))
+    ref = ck.conv2d_wgrad_reference(x, g, 5, 13, dil)
+    assert (dwb.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+def test_kernel_wgrad_conv_without_input_gradient():
+    """Layer 1 of a trunk whose input needs no gradient: dW alone, and no
+    data pass."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 8, 4, 30, generator=gen)
+    w = (0.1 * torch.randn(8, 8, 5, 13, generator=gen)).requires_grad_(True)
+    y, d = ck.conv2d_same_phases_kernel_wgrad(x, w, 4)
+    g = torch.randn(y.shape, generator=gen)
+    (dw,) = torch.autograd.grad(y, w, g)
+    from mod_extraction_tpu_torch.ops.conv import from_time_phases
+
+    g_u = from_time_phases(g, 4, 30)
+    # the phases' padding of g (t >= 30) is no frame: K6 reads T frames only
+    assert torch.equal(dw, ck.conv2d_wgrad_plain(x, g_u, 5, 13, 4))
+
+
+@pytest.mark.parametrize("phases,t", [(2, 345), (16, 345), (3, 64)])
+def test_channels_last_copy_of_phases_on_cpu(phases, t):
+    """K6's operand copy from the phase form: frames back in order, the
+    phases' padding dropped, bf16, channels last."""
+    from mod_extraction_tpu_torch.ops.conv import time_phases
+
+    a = torch.randn(2, 8, 3, t)
+    got = ck.channels_last_bf16(time_phases(a, phases), phases, t)
+    assert torch.equal(got, a.permute(0, 2, 3, 1).to(torch.bfloat16))
+
+
+def test_wgrad_takes_a_phase_form_cotangent_on_cpu():
+    """`conv2d_wgrad_tapcat(..., dy_phases=d)` is the same function of the
+    unphased cotangent, and refuses a cotangent of another phase count."""
+    from mod_extraction_tpu_torch.ops.conv import time_phases
+
+    gen = torch.Generator().manual_seed(5)
+    x, g = torch.randn(2, 8, 3, 45, generator=gen), torch.randn(2, 8, 3, 45, generator=gen)
+    got = ck.conv2d_wgrad_tapcat(x, time_phases(g, 4), 5, 13, 4, dy_phases=4)
+    assert torch.equal(got, ck.conv2d_wgrad_plain(x, g, 5, 13, 4))
+    with pytest.raises(ValueError, match="time phases"):
+        ck.conv2d_wgrad_tapcat(x, time_phases(g, 4), 5, 13, 4, dy_phases=2)
